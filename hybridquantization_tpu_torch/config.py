@@ -85,10 +85,6 @@ class QuantizationConfig:
             raise NotImplementedError(
                 "tie_mode='average' is not ported yet (ROADMAP A11, fast modes)"
             )
-        if self.init == "kmeans":
-            raise NotImplementedError(
-                "init='kmeans' is not ported yet (ROADMAP A7, k-means seeding)"
-            )
 
 
 def _check_choice(name: str, value, options) -> None:

@@ -1,7 +1,7 @@
 """Build and bind the package's CUDA kernels.
 
-`csrc/*.cu` compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes. The build runs at the first launch on a CUDA
+`csrc/*.cu` compile with nvcc (one process per source, in parallel) and
+link into one shared library with a plain C interface, loaded with ctypes. The build runs at the first launch on a CUDA
 tensor (never at import: the CPU tests import every module), into
 `hybridquantization_tpu_torch/_build/`, under a name that hashes the sources
 and flags, so an edited source is rebuilt and an unchanged one is reused
@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -36,6 +36,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # feats, pal, opp_pal, P, K, pop, opp_out, counts, idx_out, stream
     "hq_assign_pop": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # feats, pal, P, K, idx_out, stream
+    "hq_assign_idx": [_P, _P, _I, _I, _P, _P],
     # q, target, kh, kv, taps, pop, H, W, wp0, wp1, wp2, kind, t7, partials, sums, stream
     "hq_fused_err_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P, _P],
     # H, W -> number of per-member partial sums hq_fused_err_sums writes
@@ -66,24 +68,40 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libhq_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; their joined output, or raise on a failure."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the build directory (if not already there)."""
+    """Compile csrc/*.cu into the build directory (if not already there):
+    one nvcc per source, all started together, then one link."""
     out = _library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, _sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    build_info.update(seconds=time.perf_counter() - t0, log=proc.stdout + proc.stderr)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        t0 = time.perf_counter()
+        objs = [tmp / f"{src.stem}.o" for src in _sources()]
+        log = _run_all([
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(src)]
+            for src, o in zip(_sources(), objs)
+        ])
+        lib = tmp / "lib.so"
+        log += _run_all([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(lib), *map(str, objs)]])
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    build_info.update(seconds=time.perf_counter() - t0, log=log)
     return out
 
 

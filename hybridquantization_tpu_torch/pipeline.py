@@ -5,16 +5,19 @@ The counterpart of `hybridquantization_tpu/pipeline.py`
 
   1. build the S-CIELAB filter bank (host, init-time)
   2. S-CIELAB transform of the original image (device, once)
-  3. SWASA search for the best palette (device, in chunks)
-  4. final nearest-palette quantize pass
-  5. optional Delta-E error image (HybridQuantization.java:139-182)
+  3. SWASA search for the best palette (device, in chunks), from random or
+     k-means palettes (ops.kmeans), with optional checkpoints
+  4. optional Lloyd polish of the palette (ops.assign.polish_palette)
+  5. final nearest-palette quantize pass, optionally dithered
+  6. optional Delta-E error image (HybridQuantization.java:139-182)
 
 Each fitness evaluation of the search runs the population through the
 assignment kernel (ops.assign_kernel, B1) and the fused S-CIELAB Delta-E
-kernel (ops.fused_fitness, B2) on a CUDA device; on the CPU the same wrappers
-run their plain versions. The host sees scalar telemetry between chunks and
-can stop the search through the progress callback (the reference's
-stopFlag, HybridQuantization.java:312-318).
+kernel (ops.fused_fitness, B2) on a CUDA device; every one-palette lookup
+(the k-means and Lloyd steps, quantize) runs the index kernel (B3). On the
+CPU the same wrappers run their plain versions. The host sees scalar telemetry between chunks and can stop the
+search through the progress callback (the reference's stopFlag,
+HybridQuantization.java:312-318).
 """
 
 from __future__ import annotations
@@ -26,10 +29,12 @@ import numpy as np
 import torch
 
 from . import colorspace as cs
+from .checkpoint import save_state
 from .config import QuantizationConfig
 from .ops import assign as assign_ops
 from .ops.assign_kernel import assign_opp_usage_pop
 from .ops.fused_fitness import fused_scielab_err_sums
+from .ops.kmeans import kmeans_init_palettes
 from .scielab import transform as sct
 from .scielab.filters import ScielabFilters, build_filters
 from .swasa import loop as swasa_loop
@@ -142,6 +147,7 @@ class HybridQuantizer:
     Usage:
         q = HybridQuantizer(QuantizationConfig(...), device="cuda")
         palette, info = q.find_palette(image)          # (H, W, 3) sRGB float
+        palette = q.polish(image, palette)             # optional
         out = q.quantize(image, palette)
         mean_de, err_viz = q.error_image(image, out)
 
@@ -175,21 +181,24 @@ class HybridQuantizer:
         chunk_size: int | None = None,
         initial_state: SWASAState | None = None,
         checkpoint_path: str | None = None,
+        checkpoint_every: int = 500,
     ):
         """SWASA search for the best K-color palette.
 
         Returns (palette (K, 3) float32 sRGB tensor, info dict with the
         fitness trajectory and the final state). `generator` (on the
         quantizer's device) makes every draw; by default one seeded with
-        config.seed. `initial_state` resumes a run.
+        config.seed. With init="kmeans" it first draws the k-means starts
+        on the full image, then the initial fitness runs on those palettes
+        (the JAX engine's order: its key is split first and the k-means
+        starts use the sub-key). `initial_state` (e.g. from
+        checkpoint.load_state) resumes a run; `checkpoint_path` writes the
+        state atomically every `checkpoint_every` iterations.
         """
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "checkpoints are not ported yet (ROADMAP A7, checkpoint)"
-            )
         cfg = self.config
         chunk = chunk_size or cfg.progress_every
-        ctx = _make_context(self._as_image(image_hwc), self.filters, cfg, self.device)
+        image = self._as_image(image_hwc)
+        ctx = _make_context(image, self.filters, cfg, self.device)
         fitness = make_population_fitness(ctx, cfg)
         if initial_state is not None:
             state = initial_state
@@ -197,17 +206,26 @@ class HybridQuantizer:
             if generator is None:
                 generator = torch.Generator(device=self.device)
                 generator.manual_seed(cfg.seed)
-            state = swasa_loop.init_state(generator, fitness, cfg.swasa)
+            init_colors = None
+            if cfg.init == "kmeans":
+                init_colors = kmeans_init_palettes(
+                    generator, image.reshape(-1, 3), cfg.swasa.num_colors, cfg.swasa.population
+                )
+            state = swasa_loop.init_state(generator, fitness, cfg.swasa, init_colors)
 
         imax = cfg.swasa.imax
         traj = []
         start = time.time()
         done = int(state.iteration)
         resumed_at = done
+        last_ckpt = done
         while done < imax:
             n = min(chunk, imax - done)
             state, telemetry = swasa_loop.run_chunk(state, fitness, cfg.swasa, n)
             done += n
+            if checkpoint_path and done - last_ckpt >= checkpoint_every:
+                save_state(checkpoint_path, state)
+                last_ckpt = done
             traj.append(telemetry)
             if cfg.verbose:
                 # population stats parity (ImageManipulation.java:552-565)
@@ -239,18 +257,41 @@ class HybridQuantizer:
 
     # -- Palette refinement ---------------------------------------------------
 
-    def polish(self, image_hwc, palette, iters: int = 10):
-        """Lloyd refinement of a palette (beyond-reference; not ported yet)."""
-        raise NotImplementedError("polish is not ported yet (ROADMAP A7, Lloyd polish)")
+    def polish(self, image_hwc, palette, iters: int = 10) -> torch.Tensor:
+        """Lloyd (k-means) refinement of a palette in the assignment space.
+
+        Beyond-reference (the reference's anneal is its only optimizer):
+        each step moves every entry to the centroid of its assigned pixels,
+        monotone in assignment-space MSE; "lab" mode polishes in CIELAB and
+        maps back to sRGB with gamut clamping. Below 2^20 pixels the steps
+        run per pixel through the B3 kernel on the card, from there on a
+        weighted color histogram (ops.assign.polish_palette). The SWASA
+        fitness is the spatial S-CIELAB Delta-E, a different objective:
+        compare with error_image when it matters.
+        """
+        return assign_ops.polish_palette(
+            self._as_image(image_hwc).reshape(-1, 3),
+            self._as_image(palette),
+            self.config.assignment_space,
+            self._whitepoint,
+            iters,
+        )
 
     # -- Quantize / error image --------------------------------------------
 
     def quantize(self, image_hwc, palette, dither: float = 0.0) -> torch.Tensor:
-        """Apply a palette (nearest in the configured assignment space)."""
-        if dither > 0.0:
-            raise NotImplementedError("dither is not ported yet (ROADMAP A7, dither)")
+        """Apply a palette (nearest in the configured assignment space).
+
+        dither > 0 perturbs the pixels with a tiled mean-zero Bayer matrix
+        scaled by the sRGB palette spacing before the nearest lookup
+        (beyond-reference; less banding in smooth gradients at small K).
+        The perturbation is in sRGB; the assignment still uses the
+        configured space.
+        """
         image = self._as_image(image_hwc)
         pal = self._as_image(palette)
+        if dither > 0.0:
+            image = assign_ops.dither_perturbation(image, pal, dither)
         if self.config.assignment_space == "lab":
             wp = self._whitepoint
             idx = assign_ops.nearest_palette(

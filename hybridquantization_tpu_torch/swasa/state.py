@@ -45,14 +45,31 @@ _TENSORS = ("colors", "current_errors", "best_colors", "best_error", "temperatur
 
 
 def state_to_numpy(state: SWASAState) -> dict:
-    """Flatten to a dict of host arrays; the generator as its state bytes."""
+    """Flatten to a dict of host arrays; the generator as its state bytes
+    beside the type of the device it draws on ("cpu" or "cuda")."""
     d = {k: getattr(state, k).cpu().numpy() for k in _TENSORS}
     d["generator"] = state.generator.get_state().numpy()
+    d["generator_device"] = np.asarray(state.generator.device.type)
     return d
 
 
-def state_from_numpy(d: dict, device="cpu") -> SWASAState:
-    device = torch.device(device)
+def state_from_numpy(d: dict, device=None) -> SWASAState:
+    """The state from `state_to_numpy`'s dict, on `device`.
+
+    A generator's state only restores on a generator of the same device
+    type: a CPU generator's state is its Mersenne-Twister words, a CUDA
+    generator's a seed and an offset, and neither stream can be continued on
+    the other device. So `device` defaults to the saved generator's device
+    type, and a `device` of another type raises a ValueError that names
+    both: loading elsewhere would silently change the run's later draws.
+    """
+    saved = str(np.asarray(d["generator_device"]))
+    device = torch.device(saved if device is None else device)
+    if device.type != saved:
+        raise ValueError(
+            f"the state's generator was saved on a {saved} device and cannot "
+            f"continue its stream on {device}; load it with device={saved!r}"
+        )
     generator = torch.Generator(device=device)
     generator.set_state(torch.tensor(np.asarray(d["generator"], np.uint8)))
     return SWASAState(

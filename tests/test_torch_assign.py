@@ -42,9 +42,12 @@ def test_nearest_palette_matches_jax(K):
     feats = _image_feats(K)
     pal = np.random.default_rng(K + 1).random((K, 3), dtype=np.float32)
     want = np.asarray(jassign.nearest_palette(jnp.asarray(feats), jnp.asarray(pal)))
-    got = tassign.nearest_palette(_t(feats), _t(pal), block_size=4096).numpy()
+    got = tassign.nearest_palette(_t(feats), _t(pal)).numpy()
     ok = ~_near_tie(feats, pal)
     np.testing.assert_array_equal(got[ok], want[ok])
+    # the plain scan's blocks (13000 pixels in blocks of 4096) change nothing
+    blocked = ak.assign_idx_reference(_t(feats), _t(pal), block_size=4096).numpy()
+    np.testing.assert_array_equal(blocked, got)
 
 
 def test_palette_usage_and_quantize_image_match_jax():

@@ -11,10 +11,12 @@ import pytest
 import torch
 
 from hybridquantization_tpu import config as jcfg
+from hybridquantization_tpu import io as jio
 from hybridquantization_tpu import synth as jsynth
 from hybridquantization_tpu.scielab import filters as jfilters
 from hybridquantization_tpu_torch import config as tcfg
 from hybridquantization_tpu_torch import convert, synth as tsynth
+from hybridquantization_tpu_torch import io as tio
 from hybridquantization_tpu_torch.pipeline import HybridQuantizer
 from hybridquantization_tpu_torch.scielab import filters as tfilters
 
@@ -44,7 +46,7 @@ def test_config_fields_and_defaults_match_jax(name):
         {"precision": "bf16"},
         {"conv_precision": "bf16"},
         {"tie_mode": "average"},
-        {"init": "kmeans"},
+        {"init": "kmeans", "precision": "bf16"},
     ],
 )
 def test_unported_values_raise_not_implemented(kwargs):
@@ -81,6 +83,41 @@ def test_synth_copies_are_bit_equal(h, w, seed):
     )
 
 
+def test_io_layout_converters_are_bit_equal():
+    img = tsynth.natural_image(9, 13, seed=1)
+    planar = jio.hwc_to_planar(img)
+    np.testing.assert_array_equal(tio.hwc_to_planar(img), planar)
+    np.testing.assert_array_equal(tio.planar_to_hwc(planar, 13), jio.planar_to_hwc(planar, 13))
+    flat = jio.hwc_to_interleaved_rgba(img)
+    np.testing.assert_array_equal(tio.hwc_to_interleaved_rgba(img), flat)
+    np.testing.assert_array_equal(
+        tio.interleaved_rgba_to_hwc(flat, 13), jio.interleaved_rgba_to_hwc(flat, 13)
+    )
+
+
+@pytest.mark.parametrize("ext", [".ppm", ".png"])
+def test_io_file_copy_is_bit_equal(tmp_path, ext):
+    img = tsynth.natural_image(11, 17, seed=2) * 1.1 - 0.05  # out of range: clipped on save
+    tio.save_image(str(tmp_path / f"t{ext}"), img)
+    jio.save_image(str(tmp_path / f"j{ext}"), img)
+    assert (tmp_path / f"t{ext}").read_bytes() == (tmp_path / f"j{ext}").read_bytes()
+    np.testing.assert_array_equal(
+        tio.load_image(str(tmp_path / f"j{ext}")), jio.load_image(str(tmp_path / f"j{ext}"))
+    )
+
+
+def test_io_reads_pgm_and_16_bit_ppm_like_the_original(tmp_path):
+    rng = np.random.default_rng(3)
+    pgm = tmp_path / "g.pgm"
+    pgm.write_bytes(b"P5\n# comment\n5 4\n255\n" + rng.integers(0, 256, 20, dtype=np.uint8).tobytes())
+    ppm = tmp_path / "w.ppm"
+    ppm.write_bytes(b"P6 3 2 65535\n" + rng.integers(0, 65536, 18).astype(">u2").tobytes())
+    for p in (pgm, ppm):
+        got = tio.load_image(str(p))
+        np.testing.assert_array_equal(got, jio.load_image(str(p)))
+        assert got.dtype == np.float32 and got.shape[-1] == 3
+
+
 def test_filters_from_numpy_carries_the_bank_over():
     a = jfilters.build_filters(150, 50.0)
     b = convert.filters_from_numpy(a.k1, a.k2, a.k3, a.k3_abs, a.samp_per_deg)
@@ -93,7 +130,10 @@ def test_import_loads_no_jax():
     code = (
         "import sys, hybridquantization_tpu_torch as p\n"
         "import hybridquantization_tpu_torch.convert, hybridquantization_tpu_torch.synth\n"
-        "import hybridquantization_tpu_torch.ops._cuda\n"
+        "import hybridquantization_tpu_torch.ops._cuda, hybridquantization_tpu_torch.ops.kmeans\n"
+        "import hybridquantization_tpu_torch.cli, hybridquantization_tpu_torch.checkpoint\n"
+        "import hybridquantization_tpu_torch.io, hybridquantization_tpu_torch.metrics\n"
+        "import chip_smoke, chip_profile\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('hybridquantization_tpu.') or m == 'hybridquantization_tpu')\n"
         "assert not bad, bad\n"
@@ -120,3 +160,14 @@ def test_cuda_device_without_a_card_fails():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HybridQuantizer(tcfg.QuantizationConfig())
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py"])
+def test_chip_scripts_refuse_without_a_card(script):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, script], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert '"ok"' not in out.stdout

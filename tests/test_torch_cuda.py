@@ -25,6 +25,8 @@ torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
 
 NEAR_TIE = 1e-5  # |score gap| (f64) within which f32 rounding may pick either entry
+# B3: near ties are relative, LAB scores reach ~1e4 where one f32 ulp is ~1e-3
+NEAR_TIE_REL = 1e-6
 SUM_RTOL = 1e-5  # B2: f32 filters in another FMA order; sums reduced in f64 vs f32
 
 
@@ -91,9 +93,69 @@ def test_b1_kernel_ties_and_nan(cuda_device):
     assert idx[0, 17] == -1 and bool((opp[0, :, 17] == 0).all())
     assert int(counts.sum()) == 4999
     keep = torch.tensor([0, 1, 2, 3, 4, 6, 7], device=cuda_device)
-    want = keep[assign_ops.nearest_palette(feats, pal[keep])]
+    want = keep[ak.assign_idx_reference(feats, pal[keep]).long()]
     ok = torch.arange(5000, device=cuda_device) != 17
     assert torch.equal(idx[0][ok].long(), want[ok])
+
+
+def _check_b3(feats, pal):
+    """B3 on the card against its plain version: indices equal outside the
+    relative near-tie class (gap <= NEAR_TIE_REL * max(1, |score|))."""
+    before = ak.assign_idx.launches
+    idx = ak.assign_idx(feats, pal)
+    torch.cuda.synchronize()
+    assert ak.assign_idx.launches == before + 1
+    assert idx.dtype == torch.int32 and idx.shape == (feats.shape[0],)
+    want = ak.assign_idx_reference(feats, pal)
+    diff = idx != want
+    if diff.any():
+        (i,) = torch.nonzero(diff, as_tuple=True)
+        f = feats[i].double()
+        ca, cb = pal[idx[i].long()].double(), pal[want[i].long()].double()
+        sa = (f * ca).sum(-1) - 0.5 * (ca * ca).sum(-1)
+        sb = (f * cb).sum(-1) - 0.5 * (cb * cb).sum(-1)
+        scale = torch.maximum(sa.abs(), sb.abs()).clamp_min(1.0)
+        assert bool(((sa - sb).abs() <= NEAR_TIE_REL * scale).all())
+    return idx
+
+
+@pytest.mark.parametrize("K", [1, 16, 256, 1025, 5000])
+def test_b3_kernel_matches_plain(cuda_device, K):
+    feats = _rand((173 * 301, 3), 40 + K, cuda_device)  # 52073 pixels: not a multiple of 512
+    _check_b3(feats, _rand((K, 3), 41 + K, cuda_device))
+
+
+def test_b3_kernel_lab_features(cuda_device):
+    img = torch.as_tensor(natural_image(120, 160, seed=3), device=cuda_device)
+    feats = cs.srgb_to_lab(img.reshape(-1, 3)).contiguous()
+    _check_b3(feats, cs.srgb_to_lab(_rand((200, 3), 7, cuda_device)).contiguous())
+
+
+def test_b3_kernel_ties_and_nan(cuda_device):
+    feats = _rand((3001, 3), 8, cuda_device)
+    feats[17] = float("nan")
+    pal = _rand((9, 3), 9, cuda_device)
+    pal[5] = pal[2]
+    pal[8] = float("nan")
+    idx = ak.assign_idx(feats, pal)
+    assert int(idx[17]) == -1
+    assert not bool(((idx == 5) | (idx == 8)).any()) and bool((idx == 2).any())
+    keep = torch.tensor([0, 1, 2, 3, 4, 6, 7], device=cuda_device)
+    want = keep[ak.assign_idx_reference(feats, pal[keep]).long()]
+    ok = torch.arange(3001, device=cuda_device) != 17
+    assert torch.equal(idx[ok].long(), want[ok])
+
+
+@pytest.mark.parametrize("space", ["srgb", "lab"])
+def test_lloyd_polish_on_the_card_matches_cpu(cuda_device, space):
+    px = torch.as_tensor(natural_image(96, 128, seed=4)).reshape(-1, 3)
+    pal = _rand((8, 3), 10, "cpu")
+    before = ak.assign_idx.launches
+    got = assign_ops.polish_palette(px.to(cuda_device), pal.to(cuda_device), space, cs.WHITEPOINT_D65, 10, "exact")
+    torch.cuda.synchronize()
+    assert ak.assign_idx.launches == before + 10
+    want = assign_ops.polish_palette(px, pal, space, cs.WHITEPOINT_D65, 10, "exact")
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("kind", ["CIE76", "CIE94", "CIEDE2000"])

@@ -1,6 +1,8 @@
-"""The port's slice end to end against the JAX engine: 20 annealing steps fed
-the same draws, then quantize and error_image; plus the engine's own flow
-(progress, cancel, chunks, resume) and what it does not port yet."""
+"""The port's slices end to end against the JAX engine: 20 annealing steps fed
+the same draws, then quantize and error_image; the quality schedule (k-means
+seeds, 10 steps, exact polish, dithered quantize, error_image); plus the
+engine's own flow (progress, cancel, chunks, resume) and what it does not
+port yet."""
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +13,7 @@ import torch
 from hybridquantization_tpu import HybridQuantizer as JQuantizer
 from hybridquantization_tpu import QuantizationConfig as JConfig
 from hybridquantization_tpu import SWASAConfig as JSWASA
+from hybridquantization_tpu.ops.kmeans import kmeans_init_palettes as j_kmeans_init
 from hybridquantization_tpu.pipeline import _make_context as j_make_context
 from hybridquantization_tpu.pipeline import make_population_fitness as j_pop_fitness
 from hybridquantization_tpu.swasa import loop as jloop
@@ -150,12 +153,65 @@ def test_seeded_runs_repeat():
 @pytest.mark.parametrize(
     "call",
     [
-        lambda q, img: q.polish(img, torch.rand(5, 3)),
-        lambda q, img: q.quantize(img, torch.rand(5, 3), dither=0.5),
-        lambda q, img: q.find_palette(img, checkpoint_path="x.npz"),
+        lambda q, img: QuantizationConfig(precision="bf16"),
+        lambda q, img: QuantizationConfig(tie_mode="average", init="kmeans"),
+        lambda q, img: QuantizationConfig(conv_precision="bf16"),
     ],
 )
 def test_unported_features_raise(call):
     q, img = _small()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         call(q, img)
+
+
+@pytest.mark.parametrize("space", ["srgb", "lab"])
+def test_quality_schedule_slice_matches_jax(space):
+    """JAX's k-means seeds as the initial palettes, 10 steps on shared draws,
+    then the exact polish, a dithered quantize and error_image."""
+    K, pop, steps = 8, 4, 10
+    img = _image(48, 56, seed=6)
+    jcfg = JConfig(
+        swasa=JSWASA(num_colors=K, population=pop, imax=steps), use_pallas="off",
+        assignment_space=space, init="kmeans",
+    )
+    jq = JQuantizer(jcfg)
+    jfit = j_pop_fitness(j_make_context(jnp.asarray(img), jq.filters, jcfg), jcfg, jq.filters.half_width)
+    jstep = jax.jit(jloop.make_step(jfit, jcfg.swasa))
+    seeds = j_kmeans_init(jax.random.PRNGKey(1), jnp.asarray(img).reshape(-1, 3), K, pop)
+    jstate = jloop.init_state(jax.random.PRNGKey(2), jfit, jcfg.swasa, seeds)
+
+    cfg = QuantizationConfig(
+        swasa=SWASAConfig(num_colors=K, population=pop, imax=steps), assignment_space=space,
+        init="kmeans",
+    )
+    q = HybridQuantizer(cfg, device="cpu")
+    fit = make_population_fitness(_make_context(img, q.filters, cfg, "cpu"), cfg)
+    state = tloop.init_state(torch.Generator(), fit, cfg.swasa, torch.from_numpy(np.array(seeds)))
+    np.testing.assert_allclose(
+        state.current_errors.numpy(), np.asarray(jstate.current_errors), rtol=0, atol=ERR_ATOL
+    )
+    tstep = tloop.make_step(fit, cfg.swasa)
+    for ite in range(1, steps + 1):
+        _, k_prop, k_acc, k_conv = jax.random.split(jstate.key, 4)
+        draws = {
+            "prop": jax.random.uniform(k_prop, (pop, K, 3), jnp.float32, -1.0, 1.0),
+            "acc": jax.random.uniform(k_acc, (pop,)),
+            "conv": jax.random.uniform(k_conv, (pop,)),
+        }
+        jstate, _ = jstep(jstate, jnp.int32(ite))
+        state, _ = tstep(
+            state, torch.tensor(ite, dtype=torch.int32),
+            {k: torch.from_numpy(np.array(v)) for k, v in draws.items()},
+        )
+    np.testing.assert_allclose(state.best_colors.numpy(), np.asarray(jstate.best_colors), atol=COLOR_ATOL)
+    assert float(state.best_error) == pytest.approx(float(jstate.best_error), abs=ERR_ATOL)
+
+    j_pal = np.asarray(jq.polish(img, np.asarray(jstate.best_colors), iters=10))
+    pal = q.polish(img, state.best_colors, iters=10)
+    np.testing.assert_allclose(pal.numpy(), j_pal, rtol=0, atol=COLOR_ATOL)
+    j_out = np.asarray(jq.quantize(img, j_pal, dither=0.5))
+    out = q.quantize(img, j_pal, dither=0.5)
+    np.testing.assert_array_equal(out.numpy(), j_out)  # no perturbed pixel is a near tie here
+    j_mean, _ = jq.error_image(img, j_out)
+    mean, _ = q.error_image(img, j_out)
+    assert float(mean) == pytest.approx(float(j_mean), rel=MEAN_DE_RTOL)
