@@ -4,10 +4,12 @@ The counterpart of `hybridquantization_tpu/cli.py`, with the same flags,
 defaults and messages. Every flag mirrors an EzPlug GUI variable with the
 same default, range, and tooltip meaning (HybridQuantization.initialize,
 HybridQuantization.java:185-257). Two modes, like the plugin's
-EzQuantization toggle (:63-85):
+EzQuantization toggle (:63-85), and the batch command:
 
-  quantize   — find the best K-color palette and write the quantized image
-  error      — Delta-E error image between two images (:139-155)
+  quantize        — find the best K-color palette and write the quantized image
+  error           — Delta-E error image between two images (:139-155)
+  quantize-batch  — many images, bucketed by resolution, each bucket one
+                    batched anneal on the GPU (parallel.BatchQuantizer)
 
 The engine runs on the CUDA device and raises when there is none; `main`'s
 `device` keyword is for callers that run it elsewhere (the CPU tests).
@@ -16,6 +18,7 @@ The engine runs on the CUDA device and raises when there is none; `main`'s
 Example:
   python -m hybridquantization_tpu_torch.cli quantize in.ppm out.ppm --colors 8
   python -m hybridquantization_tpu_torch.cli error orig.ppm quant.ppm --out err.ppm
+  python -m hybridquantization_tpu_torch.cli quantize-batch a.ppm b.ppm --out-dir out --fast
 """
 
 from __future__ import annotations
@@ -57,12 +60,14 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     g.add_argument(
         "--precision", choices=["highest", "f32x3", "bf16"], default="f32x3",
         help="assignment-score and S-CIELAB filter precision (highest and "
-        "f32x3 both run fp32 here; bf16 is not ported yet)",
+        "f32x3 both run fp32 here; bf16 rounds the operands to bf16 as the "
+        "TPU's single-pass matmul does)",
     )
     g.add_argument(
         "--tie-mode", choices=["first", "average"], default="first",
         help="exact-score tie handling in the assignment kernel (default "
-        "'first' = reference semantics; 'average' is not ported yet)",
+        "'first' = reference semantics; 'average' = the mean colour of the "
+        "tied entries, each marked used)",
     )
     g.add_argument(
         "--conv-precision", choices=["", "highest", "f32x3", "bf16"],
@@ -72,7 +77,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     )
     g.add_argument(
         "--fast", action="store_true",
-        help="shorthand for --precision bf16 --tie-mode average (not ported yet)",
+        help="shorthand for --precision bf16 --tie-mode average (on the TPU "
+        "it trades mean-deltaE for speed, the cost growing with config scale "
+        "— ~1.2%% at 64^2/K6 but ~5.5%% at 512^2/K16, docs/PERFORMANCE.md; "
+        "on the GPU it is no faster, PERF.md)",
     )
 
 
@@ -136,9 +144,41 @@ def build_parser() -> argparse.ArgumentParser:
 
     b = sub.add_parser(
         "quantize-batch",
-        help="quantize many images in one batch (not ported yet: ROADMAP A12)",
+        help="quantize many images in batches on one GPU (mixed resolutions ok)",
     )
     b.add_argument("inputs", nargs="+", help="input images")
+    b.add_argument("--out-dir", required=True, help="output directory")
+    b.add_argument("--colors", "-k", type=int, default=256)
+    b.add_argument("--imax", type=int, default=500)
+    b.add_argument("--population", type=int, default=4)
+    b.add_argument("--mesh-data", type=int, default=1, help="data-parallel mesh axis (1 on one GPU)")
+    b.add_argument("--mesh-pixel", type=int, default=0, help="pixel mesh axis (0 = rest; 1 on one GPU)")
+    b.add_argument(
+        "--mesh-pop", type=int, default=1,
+        help="population (EP) mesh axis (1 on one GPU)",
+    )
+    b.add_argument(
+        "--assignment-space", choices=["srgb", "lab"], default="srgb"
+    )
+    b.add_argument("--seed", type=int, default=0)
+    b.add_argument(
+        "--init", choices=["random", "kmeans"], default="random",
+        help="initial palettes (see quantize --init)",
+    )
+    b.add_argument(
+        "--polish", type=int, default=0, metavar="N",
+        help="Lloyd refinement steps after each anneal (see quantize --polish)",
+    )
+    b.add_argument(
+        "--error-images", metavar="DIR",
+        help="also write per-image Delta-E error images (reference error-"
+        "image mode) into DIR as <name>_DE.png",
+    )
+    g = b.add_argument_group("multi-host (more than one GPU: not ported yet, ROADMAP A13)")
+    g.add_argument("--distributed", action="store_true", help="multi-host runtime (raises)")
+    g.add_argument("--coordinator", default=None, help="coordinator host:port")
+    g.add_argument("--num-processes", type=int, default=None)
+    g.add_argument("--process-id", type=int, default=None)
     _add_common(b)
     return parser
 
@@ -241,11 +281,72 @@ def cmd_error(args, device="cuda") -> int:
     return 0
 
 
-def cmd_quantize_batch(args) -> int:
-    _config_from_args(args)  # unported config values raise first, naming A11
-    raise NotImplementedError(
-        "quantize-batch is not ported yet (ROADMAP A12, batch engine on one GPU)"
+def _check_one_device(args) -> None:
+    """quantize-batch runs on one GPU: the mesh flags take their one-device
+    values, and anything larger raises, naming the multi-GPU item."""
+    more = [
+        f"--{name} {value}"
+        for name, value, ok in (
+            ("mesh-data", args.mesh_data, (1,)),
+            ("mesh-pixel", args.mesh_pixel, (0, 1)),
+            ("mesh-pop", args.mesh_pop, (1,)),
+        )
+        if value not in ok
+    ]
+    if args.distributed:
+        more.append("--distributed")
+    if more:
+        raise NotImplementedError(
+            f"{', '.join(more)}: more than one GPU is not ported yet (ROADMAP A13, multi-GPU)"
+        )
+
+
+def cmd_quantize_batch(args, device="cuda") -> int:
+    from . import native
+    from .batching import run_bucketed
+    from .parallel import BatchQuantizer
+
+    _check_one_device(args)
+    # _config_from_args reads the batch flags (colors/population/imax) and
+    # carries precision/tie_mode/fast through.
+    cfg = _config_from_args(args)
+    engine = BatchQuantizer(cfg, device=device)
+    print(f"mesh 1x1, {len(args.inputs)} images, K={args.colors}")
+
+    images = [native.load_image(p) for p in args.inputs]
+    os.makedirs(args.out_dir, exist_ok=True)
+    if args.error_images:
+        os.makedirs(args.error_images, exist_ok=True)
+
+    def run_batch(stack):
+        out, info = engine.run(stack, polish_iters=args.polish)
+        res = (out.cpu().numpy(), info["best_errors"], info["palettes"].cpu().numpy())
+        if args.error_images:
+            de, viz = engine.error_images(stack, out)
+            return (*res, de.cpu().numpy(), viz.cpu().numpy())
+        return res
+
+    t0 = time.time()
+    results = run_bucketed(images, run_batch)
+    dt = time.time() - t0
+    total_pix = sum(im.shape[0] * im.shape[1] for im in images)
+    for path, res in zip(args.inputs, results):
+        out, err, palette = res[:3]
+        name = os.path.splitext(os.path.basename(path))[0]
+        dest = os.path.join(args.out_dir, f"{name}_q{args.colors}.png")
+        hio.save_image(dest, out)
+        line = f"{dest}  error={float(err):.4f}"
+        if args.error_images:
+            de, viz = res[3], res[4]
+            epath = os.path.join(args.error_images, f"{name}_DE.png")
+            hio.save_image(epath, viz)
+            line += f"  DeltaE={float(de):.4f} -> {epath}"
+        print(line)
+    print(
+        f"batch done: {dt:.1f}s, {total_pix / 1e6:.1f} Mpix, "
+        f"{total_pix * args.imax * args.population / dt / 1e6:.0f} Mpix-evals/s"
     )
+    return 0
 
 
 def main(argv=None, device=None) -> int:
@@ -258,7 +359,7 @@ def main(argv=None, device=None) -> int:
         if args.command == "quantize":
             return cmd_quantize(args, device)
         if args.command == "quantize-batch":
-            return cmd_quantize_batch(args)
+            return cmd_quantize_batch(args, device)
         return cmd_error(args, device)
 
 

@@ -5,12 +5,14 @@ field (`tests/test_torch_config.py` holds them equal), so one configuration
 describes a run in either package. The reference's GUI parameters and their
 defaults are documented there (HybridQuantization.java:185-257).
 
-On the GPU the assignment scores and the S-CIELAB filter run in plain fp32,
-so `precision` "highest" and "f32x3" (the TPU's two f32-grade matmul modes)
-both mean fp32 here, and `conv_precision` follows them. `use_pallas` and
+`precision` "highest" and "f32x3" (the TPU's two f32-grade matmul modes)
+both mean fp32 here: the assignment scores and the S-CIELAB filter run in
+plain fp32 on the GPU. "bf16" is the TPU's single-pass DEFAULT dot: every
+operand is rounded to bf16 (round to nearest even), each product is exact
+in f32 and the products accumulate in f32. `conv_precision` ("" = follow
+`precision`) sets the S-CIELAB filter's mode on its own. `use_pallas` and
 `overlap_collectives` steer TPU-only code paths and are accepted and
-ignored. Values this package does not run yet raise `NotImplementedError`
-naming the ROADMAP item that ports them.
+ignored.
 """
 
 from __future__ import annotations
@@ -76,15 +78,6 @@ class QuantizationConfig:
         _check_choice("conv_precision", self.conv_precision, ("",) + PRECISIONS)
         _check_choice("tie_mode", self.tie_mode, TIE_MODES)
         _check_choice("init", self.init, INITS)
-        if "bf16" in (self.precision, self.conv_precision):
-            raise NotImplementedError(
-                "precision/conv_precision='bf16' is not ported yet "
-                "(ROADMAP A11, fast modes)"
-            )
-        if self.tie_mode == "average":
-            raise NotImplementedError(
-                "tie_mode='average' is not ported yet (ROADMAP A11, fast modes)"
-            )
 
 
 def _check_choice(name: str, value, options) -> None:

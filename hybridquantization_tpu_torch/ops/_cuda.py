@@ -34,12 +34,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # feats, pal, opp_pal, P, K, pop, opp_out, counts, idx_out, stream
-    "hq_assign_pop": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # feats, pal, opp_pal, B, P, K, pop, bf16, average, packed, opp_out, counts,
+    # idx_out, stream
+    "hq_assign_pop": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # feats, pal, P, K, idx_out, stream
     "hq_assign_idx": [_P, _P, _I, _I, _P, _P],
-    # q, target, kh, kv, taps, pop, H, W, wp0, wp1, wp2, kind, t7, partials, sums, stream
-    "hq_fused_err_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P, _P],
+    # q, target, kh, kv, taps, members, pop, H, W, wp0, wp1, wp2, kind, bf16,
+    # t7, partials, sums, stream
+    "hq_fused_err_sums": [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P, _P,
+    ],
     # H, W -> number of per-member partial sums hq_fused_err_sums writes
     "hq_fused_num_partials": [_I, _I],
 }

@@ -20,13 +20,19 @@ import numpy as np
 import torch
 
 from .. import colorspace as cs
-from .assign_kernel import assign_idx
+from .assign_kernel import assign_idx, nearest_scan
 
 
-def nearest_palette(pixels: torch.Tensor, palette: torch.Tensor) -> torch.Tensor:
+def nearest_palette(
+    pixels: torch.Tensor, palette: torch.Tensor, precision: str = "f32x3"
+) -> torch.Tensor:
     """(P,) int32 index of the nearest palette entry for each (P, 3) pixel,
     first index on ties: B3's index, with a pixel that has no winner (all
-    scores NaN) sent to entry 0, as an argmax over its scores would."""
+    scores NaN) sent to entry 0, as an argmax over its scores would.
+    precision "bf16" scores as B1's bf16 mode does, in the plain scan (B3
+    is fp32 in every mode, as in JAX)."""
+    if precision == "bf16":
+        return nearest_scan(pixels, palette, "bf16").clamp_min(0)
     return assign_idx(pixels, palette).clamp_min(0)
 
 

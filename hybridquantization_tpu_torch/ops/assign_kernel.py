@@ -2,17 +2,32 @@
 plain versions.
 
 B1 replaces the TPU kernel `hybridquantization_tpu/ops/pallas_assign.py`
-(`_assign_opp_pop_kernel`, launched by `assign_opp_pop`). For every member
-of a population of palettes and every pixel: the nearest palette entry by
-score f . c_k - |c_k|^2 / 2 (first index on ties, NaN never wins), the
-winner's opponent color, and exact int32 per-entry pixel counts. Usage
-flags are `counts > 0`.
+(`_assign_opp_pop_kernel`, launched by `assign_opp_pop`). For every image
+of a bucket, every member of its population of palettes and every pixel:
+the nearest palette entries by score f . c_k - |c_k|^2 / 2 (NaN never
+wins), the winner's opponent color, and int32 per-entry counts, whose
+`> 0` are the usage flags. Its two tie modes and two score precisions are
+the Pallas kernel's:
+
+  tie_mode "first"    the first index of the maximum wins (the reference's
+                      strict-less scan); counts are pixel counts.
+  tie_mode "average"  every entry that reaches the maximum is a hit: the
+                      color is the sum of the hits' opponent colors (in
+                      index order) times 1 / max(hits, 1), and each hit
+                      adds one to its entry's count, so counts are hits,
+                      not pixels (`pallas_assign.py:231-235, :262-267,
+                      :288-290`; JAX's `usage_counts` refuses them).
+  precision "bf16"    the TPU's single-pass DEFAULT dot: features and
+                      palette coordinates rounded to bf16, the bias formed
+                      in f32 from the unrounded palette and then rounded
+                      (`pack_palette`), products exact in f32, sums in f32.
+  "highest", "f32x3"  fp32.
 
 B3 replaces `_assign_idx_kernel` of the same file (launched by
-`assign_idx`): the int32 nearest index per pixel for one palette, with the
-same score and tie rule, and nothing else. Every one-palette lookup of
-the engine runs it: the exact Lloyd polish (ops.assign.lloyd_step, once
-per step), the histogram Lloyd steps of the k-means seeding and polish
+`assign_idx`): the int32 nearest index per pixel for one palette, fp32,
+first index on ties, and nothing else. Every one-palette lookup of the
+engine runs it: the exact Lloyd polish (ops.assign.lloyd_step, once per
+step), the histogram Lloyd steps of the k-means seeding and polish
 (ops.kmeans) and quantize (ops.assign.nearest_palette).
 
 On a CUDA tensor `assign_opp_usage_pop` and `assign_idx` launch the
@@ -20,7 +35,9 @@ hand-written kernels in `csrc/assign_pop.cu` and `csrc/assign_idx.cu`
 (built at first use, ops/_cuda.py) or raise; on a CPU tensor they run
 their `*_reference` versions. The TPU layout devices (pick_block, x4/c4
 packing with a bias row, lane folds, padded pixels) are not needed: the
-kernels tile K through shared memory and take the true P.
+kernels tile K through shared memory and take the true P. B1 takes an
+optional leading image axis (the JAX batch engine vmaps the pallas_call
+over a bucket, `parallel/fast.py:191-196`); one launch serves the bucket.
 
 One deliberate difference from the Pallas kernels: there a NaN score makes
 the pixel's max NaN, so no entry of that palette wins (B3 then writes
@@ -32,22 +49,85 @@ from __future__ import annotations
 
 import torch
 
+from ..config import PRECISIONS, TIE_MODES
 from . import _cuda
 
 DEFAULT_BLOCK = 1 << 16
 
 
-def scores(pixels: torch.Tensor, palette: torch.Tensor) -> torch.Tensor:
-    """(P, K) fp32 scores p . c_k - |c_k|^2 / 2 whose argmax is the nearest entry.
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest, ties to even) and back to f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
-    The contraction is written out over the 3 features, so no matmul
-    precision mode (TF32 on the GPU) can round it. A NaN score becomes
-    -inf, so it never wins, as the kernels' strict scan skips it.
+
+def scores(pixels: torch.Tensor, palette: torch.Tensor, precision: str = "f32x3") -> torch.Tensor:
+    """(P, K) f32 scores p . c_k - |c_k|^2 / 2 whose argmax is the nearest entry.
+
+    The contraction is written out over the 3 features (bias first), so no
+    matmul precision mode (TF32 on the GPU) can round it. With precision
+    "bf16" it repeats B1's bf16 arithmetic bit for bit: the bias is
+    -((c0 c0 + c1 c1) + c2 c2) / 2 in f32, rounded to bf16 with the
+    features and coordinates, and every product of two bf16 values is
+    exact in f32. A NaN score becomes -inf, so it never wins, as the
+    kernels' strict scan skips it.
     """
-    s = -0.5 * torch.sum(palette * palette, dim=-1)
+    if precision == "bf16":
+        sq = palette * palette
+        s = bf16_round(-0.5 * ((sq[:, 0] + sq[:, 1]) + sq[:, 2]))
+        pixels, palette = bf16_round(pixels), bf16_round(palette)
+    else:
+        s = -0.5 * torch.sum(palette * palette, dim=-1)
     for f in range(pixels.shape[-1]):
         s = s + pixels[:, f : f + 1] * palette[:, f]
     return torch.nan_to_num(s, nan=float("-inf"))
+
+
+def nearest_scan(
+    features: torch.Tensor,
+    palette: torch.Tensor,
+    precision: str = "f32x3",
+    block_size: int = DEFAULT_BLOCK,
+) -> torch.Tensor:
+    """Plain nearest-entry scan at either precision: (P,) int32 first index
+    of the highest score, -1 where no score is a number."""
+    idx = torch.empty(features.shape[0], dtype=torch.int32, device=features.device)
+    for lo in range(0, features.shape[0], block_size):
+        block = features[lo : lo + block_size]
+        best, arg = torch.max(scores(block, palette, precision), dim=-1)
+        # all scores NaN (now -inf): no winner, like the kernels' strict scan
+        idx[lo : lo + block.shape[0]] = torch.where(best > float("-inf"), arg, -1).to(torch.int32)
+    return idx
+
+
+def _average_member(features, pal, opp_pal, precision, block_size):
+    """tie_mode "average" for one member: (opp (3, P), counts (K,) int64,
+    idx (P,) int32), the colour summed over the hits in index order from the
+    first, as the kernel sums it."""
+    P, K = features.shape[0], pal.shape[0]
+    dev = features.device
+    opp = torch.empty((P, 3), dtype=torch.float32, device=dev)
+    idx = torch.empty(P, dtype=torch.int32, device=dev)
+    counts = torch.zeros(K, dtype=torch.int64, device=dev)
+    ks = torch.arange(K, device=dev)
+    for lo in range(0, P, block_size):
+        s = scores(features[lo : lo + block_size], pal, precision)
+        best, first = torch.max(s, dim=-1)
+        won = best > float("-inf")
+        hit = (s == best[:, None]) & won[:, None]
+        n = hit.sum(-1)
+        acc = opp_pal[first]
+        max_n = int(n.max()) if n.numel() else 0
+        if max_n > 1:
+            # the later hits of each pixel, in index order
+            later = torch.sort(torch.where(hit, ks, K), dim=-1).values[:, 1:max_n]
+            for r in range(max_n - 1):
+                k = later[:, r]
+                acc = torch.where((k < K)[:, None], acc + opp_pal[k.clamp(max=K - 1)], acc)
+        inv = 1.0 / n.clamp_min(1).to(torch.float32)
+        opp[lo : lo + s.shape[0]] = torch.where(won[:, None], acc * inv[:, None], 0.0)
+        idx[lo : lo + s.shape[0]] = torch.where(won, first, -1).to(torch.int32)
+        counts += hit.sum(0)
+    return opp.T, counts, idx
 
 
 def assign_opp_usage_pop_reference(
@@ -55,14 +135,31 @@ def assign_opp_usage_pop_reference(
     pal_feats: torch.Tensor,
     opp_palettes: torch.Tensor,
     *,
+    precision: str = "f32x3",
+    tie_mode: str = "first",
     block_size: int = DEFAULT_BLOCK,
 ):
-    """Plain torch version of the B1 kernel: (opp (pop, 3, P) f32,
-    counts (pop, K) int32, idx (pop, P) int32)."""
+    """Plain torch version of the B1 kernel: (opp (pop, 3, P) f32, counts
+    (pop, K) int32, idx (pop, P) int32), each with the leading image axis of
+    the inputs if they have one (each image run on its own)."""
+    kw = dict(precision=precision, tie_mode=tie_mode, block_size=block_size)
+    if features.dim() == 3:
+        outs = [
+            assign_opp_usage_pop_reference(f, p, o, **kw)
+            for f, p, o in zip(features, pal_feats, opp_palettes)
+        ]
+        return tuple(torch.stack(t) for t in zip(*outs))
     pop, K, _ = pal_feats.shape
     P = features.shape[0]
+    if tie_mode == "average":
+        members = [
+            _average_member(features, pal_feats[p], opp_palettes[p], precision, block_size)
+            for p in range(pop)
+        ]
+        opp, counts, idx = (torch.stack(t) for t in zip(*members))
+        return opp.contiguous(), counts.to(torch.int32), idx
     idx = torch.stack(
-        [assign_idx_reference(features, pal_feats[p], block_size=block_size) for p in range(pop)]
+        [nearest_scan(features, pal_feats[p], precision, block_size) for p in range(pop)]
     ).long()
     won = idx >= 0
     opp = torch.gather(opp_palettes, 1, idx.clamp_min(0)[:, :, None].expand(pop, P, 3))
@@ -71,11 +168,17 @@ def assign_opp_usage_pop_reference(
     return opp.transpose(1, 2).contiguous(), counts.to(torch.int32), idx.to(torch.int32)
 
 
-def _check(features, pal_feats, opp_palettes):
-    if features.dim() != 2 or features.shape[1] != 3:
-        raise ValueError(f"features must be (P, 3), got {tuple(features.shape)}")
-    if pal_feats.dim() != 3 or pal_feats.shape[2] != 3:
-        raise ValueError(f"pal_feats must be (pop, K, 3), got {tuple(pal_feats.shape)}")
+def _check(features, pal_feats, opp_palettes, precision, tie_mode):
+    if features.dim() not in (2, 3) or features.shape[-1] != 3:
+        raise ValueError(f"features must be (P, 3) or (B, P, 3), got {tuple(features.shape)}")
+    lead = tuple(features.shape[:-2])
+    if (
+        pal_feats.dim() != features.dim() + 1
+        or pal_feats.shape[-1] != 3
+        or tuple(pal_feats.shape[:-3]) != lead
+    ):
+        want = "(B, pop, K, 3)" if lead else "(pop, K, 3)"
+        raise ValueError(f"pal_feats must be {want}, got {tuple(pal_feats.shape)}")
     if opp_palettes.shape != pal_feats.shape:
         raise ValueError(
             f"opp_palettes {tuple(opp_palettes.shape)} != pal_feats {tuple(pal_feats.shape)}"
@@ -85,6 +188,10 @@ def _check(features, pal_feats, opp_palettes):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != features.device:
             raise ValueError(f"{name} is on {t.device}, features on {features.device}")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; options: {list(PRECISIONS)}")
+    if tie_mode not in TIE_MODES:
+        raise ValueError(f"unknown tie_mode {tie_mode!r}; options: {list(TIE_MODES)}")
 
 
 def assign_opp_usage_pop(
@@ -92,38 +199,50 @@ def assign_opp_usage_pop(
     pal_feats: torch.Tensor,
     opp_palettes: torch.Tensor,
     *,
+    precision: str = "f32x3",
+    tie_mode: str = "first",
     return_index: bool = False,
 ):
-    """Population-fused assignment.
+    """Population-fused assignment (module doc for the modes).
 
     Args:
-      features: (P, 3) f32 pixel features shared by all members (sRGB or LAB).
-      pal_feats: (pop, K, 3) f32 candidate palettes in the feature space.
-      opp_palettes: (pop, K, 3) f32 candidate palettes in opponent space.
-      return_index: also return the (pop, P) int32 winner indices.
+      features: (P, 3) f32 pixel features shared by all members (sRGB or
+        LAB), or (B, P, 3) for a bucket of B images.
+      pal_feats: (pop, K, 3) f32 candidate palettes in the feature space,
+        or (B, pop, K, 3).
+      opp_palettes: the same palettes in opponent space, shaped alike.
+      precision: "highest" | "f32x3" (fp32) | "bf16".
+      tie_mode: "first" | "average".
+      return_index: also return the int32 first index of each pixel's
+        maximum, (pop, P) or (B, pop, P).
 
     Returns:
-      (opp (pop, 3, P) f32, counts (pop, K) int32[, idx (pop, P) int32]).
-      A pixel whose scores are all NaN has no winner: opp 0, index -1, no count.
+      (opp (pop, 3, P) f32, counts (pop, K) int32[, idx]), each with the
+      leading B of the inputs. A pixel whose scores are all NaN has no
+      winner: opp 0, index -1, no count.
     """
-    _check(features, pal_feats, opp_palettes)
+    _check(features, pal_feats, opp_palettes, precision, tie_mode)
     if features.device.type == "cpu":
-        opp, counts, idx = assign_opp_usage_pop_reference(features, pal_feats, opp_palettes)
+        opp, counts, idx = assign_opp_usage_pop_reference(
+            features, pal_feats, opp_palettes, precision=precision, tie_mode=tie_mode
+        )
         return (opp, counts, idx) if return_index else (opp, counts)
     if features.device.type != "cuda":
         raise ValueError(f"unsupported device {features.device}")
-    pop, K, _ = pal_feats.shape
-    P = features.shape[0]
+    batched = features.dim() == 3
+    if not batched:
+        features, pal_feats, opp_palettes = features[None], pal_feats[None], opp_palettes[None]
+    B, pop, K, _ = pal_feats.shape
+    P = features.shape[1]
     features = features.contiguous()
     pal_feats = pal_feats.contiguous()
     opp_palettes = opp_palettes.contiguous()
-    opp = torch.empty((pop, 3, P), dtype=torch.float32, device=features.device)
-    counts = torch.zeros((pop, K), dtype=torch.int32, device=features.device)
-    idx = (
-        torch.empty((pop, P), dtype=torch.int32, device=features.device)
-        if return_index
-        else None
-    )
+    dev = features.device
+    # scratch for the palettes packed once per call (JAX's pack_palette)
+    packed = torch.empty((B, pop, K, 4), dtype=torch.float32, device=dev)
+    opp = torch.empty((B, pop, 3, P), dtype=torch.float32, device=dev)
+    counts = torch.zeros((B, pop, K), dtype=torch.int32, device=dev)
+    idx = torch.empty((B, pop, P), dtype=torch.int32, device=dev) if return_index else None
     lib = _cuda.library()
     assign_opp_usage_pop.launches += 1
     _cuda.check(
@@ -131,17 +250,22 @@ def assign_opp_usage_pop(
             features.data_ptr(),
             pal_feats.data_ptr(),
             opp_palettes.data_ptr(),
+            B,
             P,
             K,
             pop,
+            int(precision == "bf16"),
+            int(tie_mode == "average"),
+            packed.data_ptr(),
             opp.data_ptr(),
             counts.data_ptr(),
             idx.data_ptr() if idx is not None else None,
-            _cuda.stream(features.device),
+            _cuda.stream(dev),
         ),
         "hq_assign_pop",
     )
-    return (opp, counts, idx) if return_index else (opp, counts)
+    out = (opp, counts, idx) if return_index else (opp, counts)
+    return out if batched else tuple(t[0] for t in out)
 
 
 #: launches of the CUDA kernel through this wrapper (not of the plain version)
@@ -154,17 +278,11 @@ def assign_idx_reference(
     """Plain torch version of the B3 kernel: (P,) int32 nearest index, first
     index on ties, -1 where every score is NaN.
 
-    The port's one plain nearest-entry scan (B1's plain version runs it per
-    member). It works on blocks of pixels, so the (block, K) score tile
-    stays bounded: a 4K frame at K=256 would need 8.5 GB unblocked.
+    The port's one plain fp32 nearest-entry scan (B1's plain version runs
+    it per member). It works on blocks of pixels, so the (block, K) score
+    tile stays bounded: a 4K frame at K=256 would need 8.5 GB unblocked.
     """
-    idx = torch.empty(features.shape[0], dtype=torch.int32, device=features.device)
-    for lo in range(0, features.shape[0], block_size):
-        block = features[lo : lo + block_size]
-        best, arg = torch.max(scores(block, palette), dim=-1)
-        # all scores NaN (now -inf): no winner, like the kernels' strict scan
-        idx[lo : lo + block.shape[0]] = torch.where(best > float("-inf"), arg, -1).to(torch.int32)
-    return idx
+    return nearest_scan(features, palette, "f32x3", block_size)
 
 
 def assign_idx(features: torch.Tensor, palette: torch.Tensor) -> torch.Tensor:

@@ -71,6 +71,25 @@ def _features(pixels: torch.Tensor, cfg: QuantizationConfig, wp) -> torch.Tensor
     return cs.srgb_to_lab(pixels, wp) if cfg.assignment_space == "lab" else pixels
 
 
+def _per_image(fn, palettes: torch.Tensor) -> torch.Tensor:
+    """fn over a palette stack, image by image when it has an image axis on
+    the CPU.
+
+    There torch evaluates pow with SIMD code for the aligned elements of a
+    tensor and with libm for its tail, which round differently, so an
+    element's last bit depends on its position; mapping each image's
+    (pop, K, 3) stack on its own keeps an image's numbers independent of its
+    bucket (converted in one call, the bucket's fitness differs from an
+    image's own in the last bit:
+    tests/test_torch_batch.py::test_batched_fitness_is_bit_equal_to_single_images).
+    A CUDA kernel computes every element alike, so on the card the bucket
+    converts in one call (tests/test_torch_cuda.py holds it bit-equal there).
+    """
+    if palettes.dim() == 4 and palettes.device.type == "cpu":
+        return torch.stack([fn(p) for p in palettes])
+    return fn(palettes)
+
+
 def _make_context(
     image_hwc, filters: ScielabFilters, cfg: QuantizationConfig, device="cpu"
 ) -> dict:
@@ -93,19 +112,35 @@ def _make_context(
     }
 
 
+def _make_batch_context(
+    images_bhwc, filters: ScielabFilters, cfg: QuantizationConfig, device="cpu"
+) -> dict:
+    """The per-image contexts of a bucket of same-size images, stacked on a
+    leading image axis (each image's built on its own, so it is the one its
+    single-image run would use)."""
+    ctxs = [_make_context(im, filters, cfg, device) for im in images_bhwc]
+    stacked = ("assign_pixels", "target_lab", "target_planar")
+    ctx = {k: torch.stack([c[k] for c in ctxs]) for k in stacked}
+    ctx.update({k: ctxs[0][k] for k in ("kh", "kv", "whitepoint")})
+    return ctx
+
+
 def make_fitness(ctx: dict, cfg: QuantizationConfig):
     """Palette (K, 3) -> (scalar fitness, (K,) bool usage), plain torch.
 
     The reference's per-evaluation pipeline (quantizeAndConvertToOpp ->
     S-CIELAB filter -> Opp2LAB -> Delta-E -> mean + penalty;
-    ImageManipulation.java:620-727) for one palette.
+    ImageManipulation.java:620-727) for one palette, first-index ties,
+    scores at `cfg.precision` and an fp32 filter, as JAX's make_fitness.
     """
     H, W, _ = ctx["target_lab"].shape
     wp = ctx["whitepoint"]
     de_fn = cs.DELTA_E_FNS[cfg.deltaE]
 
     def fitness(palette: torch.Tensor):
-        idx = assign_ops.nearest_palette(ctx["assign_pixels"], _features(palette, cfg, wp))
+        idx = assign_ops.nearest_palette(
+            ctx["assign_pixels"], _features(palette, cfg, wp), cfg.precision
+        )
         usage = assign_ops.palette_usage(idx, palette.shape[0])
         q_opp = cs.srgb_to_opp(palette)[idx].T.reshape(3, H, W)
         filtered = sct.scielab_filter_stacked(q_opp, ctx["kh"], ctx["kv"])
@@ -117,23 +152,32 @@ def make_fitness(ctx: dict, cfg: QuantizationConfig):
 
 
 def make_population_fitness(ctx: dict, cfg: QuantizationConfig):
-    """(pop, K, 3) palettes -> ((pop,) errors, (pop, K) bool usage).
+    """(pop, K, 3) palettes -> ((pop,) errors, (pop, K) bool usage); with a
+    batch context (`_make_batch_context`), (B, pop, K, 3) -> ((B, pop),
+    (B, pop, K)) in one launch of each kernel.
 
-    B1 (assignment, winner opponent colour, counts) then B2 (S-CIELAB
-    Delta-E sums), then sums / (H*W) + delta * #unused. On a CUDA context
-    both are the hand-written kernels; on a CPU context their plain versions.
+    B1 (assignment at `cfg.precision` and `cfg.tie_mode`, winner opponent
+    colour, counts) then B2 (S-CIELAB Delta-E sums at `cfg.conv_precision`
+    or else `cfg.precision`), then sums / (H*W) + delta * #unused, as JAX's
+    Pallas branch (`hybridquantization_tpu/pipeline.py:209-256`). On a CUDA
+    context both are the hand-written kernels; on a CPU context their plain
+    versions.
     """
-    H, W, _ = ctx["target_lab"].shape
+    H, W = ctx["target_lab"].shape[-3:-1]
     wp = ctx["whitepoint"]
+    conv_precision = cfg.conv_precision or cfg.precision
 
     def pop_fitness(palettes: torch.Tensor):
-        pop = palettes.shape[0]
         opp, counts = assign_opp_usage_pop(
-            ctx["assign_pixels"], _features(palettes, cfg, wp), cs.srgb_to_opp(palettes)
+            ctx["assign_pixels"],
+            _per_image(lambda p: _features(p, cfg, wp), palettes),
+            _per_image(cs.srgb_to_opp, palettes),
+            precision=cfg.precision,
+            tie_mode=cfg.tie_mode,
         )
         sums = fused_scielab_err_sums(
-            opp.reshape(pop, 3, H, W), ctx["target_planar"], ctx["kh"], ctx["kv"], wp,
-            cfg.deltaE,
+            opp.reshape(*palettes.shape[:-2], 3, H, W), ctx["target_planar"], ctx["kh"],
+            ctx["kv"], wp, cfg.deltaE, precision=conv_precision,
         )
         usage = counts > 0
         return sums / (H * W) + schedule.unused_penalty(usage, cfg.swasa.delta), usage

@@ -3,7 +3,11 @@
 The formulas of `hybridquantization_tpu/swasa/schedule.py` (SWASA.java),
 on torch tensors. Where the JAX functions take a PRNG key, these take their
 uniform draws as tensors, so a test can feed both packages the same numbers;
-`draw_*` makes them from a `torch.Generator` on the device.
+`random_palettes` and `draw_step` make them from a `torch.Generator` on the
+device, or from a sequence of generators, one per image of a bucket: each
+image then draws from its own generator exactly what a single-image run
+seeded alike would draw, and the draws are stacked on a leading image axis
+(JAX's per-image keys, `parallel/batch.py:215-222`).
 
   - temperature: T <- T*alpha when ite % iTc == 0, from T0 (SWASA.java:84-89)
   - adaptive max step width: s(i) = 2*s0 / (1 + exp(beta*i/imax)), applied in
@@ -16,6 +20,8 @@ uniform draws as tensors, so a test can feed both packages the same numbers;
 """
 
 from __future__ import annotations
+
+from typing import Sequence, Union
 
 import torch
 
@@ -62,17 +68,34 @@ def unused_penalty(usage, delta):
     return delta * torch.sum(~usage, dim=-1).to(torch.float32)
 
 
-def random_palettes(generator: torch.Generator, pop: int, num_colors: int) -> torch.Tensor:
-    """(pop, K, 3) uniform random initial palettes (SWASA.java:40-52)."""
-    return torch.rand((pop, num_colors, 3), generator=generator, device=generator.device)
+Generators = Union[torch.Generator, Sequence[torch.Generator]]
 
 
-def draw_step(generator: torch.Generator, pop: int, num_colors: int) -> dict:
+def _draw(generator: Generators, draw):
+    """draw(g) from one generator, or stacked over a sequence of them."""
+    if isinstance(generator, torch.Generator):
+        return draw(generator)
+    return torch.stack([draw(g) for g in generator])
+
+
+def random_palettes(generator: Generators, pop: int, num_colors: int) -> torch.Tensor:
+    """(pop, K, 3) uniform random initial palettes (SWASA.java:40-52);
+    (B, pop, K, 3) from B generators."""
+    return _draw(
+        generator, lambda g: torch.rand((pop, num_colors, 3), generator=g, device=g.device)
+    )
+
+
+def draw_step(generator: Generators, pop: int, num_colors: int) -> dict:
     """One iteration's uniform draws: proposal noise U(-1,1) (pop, K, 3),
-    acceptance and convergence draws U(0,1) (pop,)."""
-    dev = generator.device
+    acceptance and convergence draws U(0,1) (pop,); each with a leading
+    image axis from B generators. Each generator draws in this order."""
+
+    def uniform(*shape):
+        return _draw(generator, lambda g: torch.rand(shape, generator=g, device=g.device))
+
     return {
-        "prop": torch.rand((pop, num_colors, 3), generator=generator, device=dev) * 2.0 - 1.0,
-        "acc": torch.rand((pop,), generator=generator, device=dev),
-        "conv": torch.rand((pop,), generator=generator, device=dev),
+        "prop": uniform(pop, num_colors, 3) * 2.0 - 1.0,
+        "acc": uniform(pop),
+        "conv": uniform(pop),
     }

@@ -2,7 +2,9 @@
 
 The counterpart of `hybridquantization_tpu/swasa/state.py`: the tensors the
 annealing loop carries, all on one device, plus the `torch.Generator` that
-makes every draw (in place of the JAX key).
+makes every draw (in place of the JAX key). A bucket of B images annealed
+in lockstep carries the same fields with a leading image axis and a tuple
+of B generators, one per image (the JAX batch engine's vmapped states).
 """
 
 from __future__ import annotations
@@ -15,13 +17,15 @@ import torch
 
 @dataclasses.dataclass
 class SWASAState:
-    """colors:         (pop, K, 3) accepted palettes, sRGB in [0, 1]
-    current_errors: (pop,) fitness of the accepted palettes
-    best_colors:    (K, 3) best palette seen so far
-    best_error:     () best fitness seen so far
-    temperature:    () current annealing temperature
-    iteration:      () int32, iterations completed (0 = only initial eval)
-    generator:      the generator of all later draws, on the same device
+    """colors:         ([B,] pop, K, 3) accepted palettes, sRGB in [0, 1]
+    current_errors: ([B,] pop) fitness of the accepted palettes
+    best_colors:    ([B,] K, 3) best palette seen so far
+    best_error:     ([B]) best fitness seen so far
+    temperature:    ([B]) current annealing temperature
+    iteration:      () int32, iterations completed (0 = only initial eval),
+                    shared by the images of a bucket
+    generator:      the generator of all later draws, on the same device;
+                    for a bucket a tuple of B, one per image
     """
 
     colors: torch.Tensor
@@ -30,23 +34,24 @@ class SWASAState:
     best_error: torch.Tensor
     temperature: torch.Tensor
     iteration: torch.Tensor
-    generator: torch.Generator
+    generator: torch.Generator | tuple[torch.Generator, ...]
 
     @property
     def population(self) -> int:
-        return self.colors.shape[0]
+        return self.colors.shape[-3]
 
     @property
     def num_colors(self) -> int:
-        return self.colors.shape[1]
+        return self.colors.shape[-2]
 
 
 _TENSORS = ("colors", "current_errors", "best_colors", "best_error", "temperature", "iteration")
 
 
 def state_to_numpy(state: SWASAState) -> dict:
-    """Flatten to a dict of host arrays; the generator as its state bytes
-    beside the type of the device it draws on ("cpu" or "cuda")."""
+    """Flatten a single-image state to a dict of host arrays; the generator
+    as its state bytes beside the type of the device it draws on ("cpu" or
+    "cuda")."""
     d = {k: getattr(state, k).cpu().numpy() for k in _TENSORS}
     d["generator"] = state.generator.get_state().numpy()
     d["generator_device"] = np.asarray(state.generator.device.type)

@@ -15,7 +15,7 @@ from hybridquantization_tpu_torch import colorspace as tcs
 from hybridquantization_tpu_torch.ops import assign as tassign
 from hybridquantization_tpu_torch.ops import assign_kernel as ak
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_colorspace.py
 
 NEAR_TIE = 1e-5  # top-2 score gap (f64) below which f32 rounding may flip the winner
 

@@ -20,7 +20,7 @@ from hybridquantization_tpu_torch import checkpoint
 from hybridquantization_tpu_torch.swasa.state import state_from_numpy, state_to_numpy
 from hybridquantization_tpu_torch.synth import natural_image
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_colorspace.py
 
 _TENSORS = ("colors", "current_errors", "best_colors", "best_error", "temperature", "iteration")
 

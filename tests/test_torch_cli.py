@@ -15,7 +15,7 @@ from hybridquantization_tpu_torch import metrics
 from hybridquantization_tpu_torch.cli import main
 from hybridquantization_tpu_torch.synth import natural_image
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_colorspace.py
 
 DE_RTOL = 1e-5  # one f32 S-CIELAB pass on each side of the same two files
 
@@ -82,15 +82,17 @@ def test_error_matches_the_jax_cli(ppm, tmp_path, capsys):
 @pytest.mark.parametrize(
     "argv,item",
     [
-        (["quantize-batch", "a.ppm", "b.ppm"], "A12"),
-        (["quantize-batch", "a.ppm", "--fast"], "A11"),
-        (["quantize", "a.ppm", "b.ppm", "--fast"], "A11"),
-        (["quantize", "a.ppm", "b.ppm", "--precision", "bf16"], "A11"),
+        (["quantize-batch", "a.ppm", "b.ppm", "--mesh-data", "2"], "A13"),
+        (["quantize-batch", "a.ppm", "--fast", "--distributed"], "A13"),
+        (["quantize-batch", "a.ppm", "b.ppm", "--mesh-pixel", "8", "--mesh-pop", "2"], "A13"),
+        (["quantize-batch", "a.ppm", "--precision", "bf16", "--mesh-pop", "4"], "A13"),
     ],
 )
-def test_unported_commands_raise(argv, item):
+def test_unported_commands_raise(argv, item, tmp_path):
+    """quantize-batch and the fast modes run (tests/test_torch_batch.py,
+    tests/test_torch_fast.py); only more than one GPU raises."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        main(argv, device="cpu")
+        main(argv + ["--out-dir", str(tmp_path)], device="cpu")
 
 
 def test_default_device_is_the_card(ppm, tmp_path):

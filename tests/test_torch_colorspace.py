@@ -13,7 +13,15 @@ from hybridquantization_tpu_torch import colorspace as tcs
 from hybridquantization_tpu_torch.ops import conv as tconv
 from hybridquantization_tpu_torch.scielab import transform as tsct
 
-torch.set_num_threads(2)
+# One intra-op thread, in every tests/test_torch_*.py file (pytest imports
+# them all into each worker, so they must agree). With two, torch splits a
+# (4096,) sqrt between the threads, and in about one process in forty the
+# second thread's half of the first such call came back up to 2.9e-4
+# relative off (torch 2.13 CPU; the same call again was exact), which failed
+# test_delta_e_matches_jax[CIE76]. The tests hold the port's math to JAX,
+# not torch's thread pool.
+torch.set_num_threads(1)
+
 
 RTOL, ATOL = 1e-5, 1e-4  # f32 math in both; LAB values span ~1e2
 

@@ -7,6 +7,8 @@ without jax: `python -m pytest tests/test_torch_cuda.py -q --noconftest`
 (tests/conftest.py imports jax).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,12 +18,18 @@ from hybridquantization_tpu_torch import HybridQuantizer, QuantizationConfig, SW
 from hybridquantization_tpu_torch.ops import assign as assign_ops
 from hybridquantization_tpu_torch.ops import assign_kernel as ak
 from hybridquantization_tpu_torch.ops import fused_fitness as ff
-from hybridquantization_tpu_torch.pipeline import _make_context, make_population_fitness, setup_device
+from hybridquantization_tpu_torch.parallel import BatchQuantizer
+from hybridquantization_tpu_torch.pipeline import (
+    _make_batch_context,
+    _make_context,
+    make_population_fitness,
+    setup_device,
+)
 from hybridquantization_tpu_torch.scielab.filters import build_filters
 from hybridquantization_tpu_torch.scielab.transform import stacked_kernels
 from hybridquantization_tpu_torch.synth import natural_image
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_colorspace.py
 pytestmark = pytest.mark.cuda
 
 NEAR_TIE = 1e-5  # |score gap| (f64) within which f32 rounding may pick either entry
@@ -221,3 +229,133 @@ def test_engine_runs_through_both_kernels(cuda_device):
     assert np.all(np.diff(info["telemetry"]["best_error"]) <= 0)
     mean, viz = q.error_image(img, out)
     assert torch.isfinite(mean) and viz.shape == (64, 80, 3)
+
+
+def _distinct_near_tie(feats, pal):
+    """(P,) bool: the two best scores over the palette's distinct entries
+    lie within NEAR_TIE_REL * max(1, |score|) (f64; at least NEAR_TIE).
+    Exact duplicates tie in every order."""
+    c = torch.unique(pal.double(), dim=0)
+    s = feats.double() @ c.T - 0.5 * (c * c).sum(-1)
+    top2 = torch.topk(s, 2, dim=-1).values if c.shape[0] > 1 else torch.cat([s, s - 1], -1)
+    bound = torch.clamp(NEAR_TIE_REL * top2[:, 0].abs(), min=NEAR_TIE)
+    return (top2[:, 0] - top2[:, 1]) <= bound
+
+
+@pytest.mark.parametrize("space", ["srgb", "lab"])
+@pytest.mark.parametrize(
+    "precision,tie_mode", [("bf16", "first"), ("f32x3", "average"), ("bf16", "average")]
+)
+def test_b1_fast_modes_match_plain(cuda_device, space, precision, tie_mode):
+    img = torch.as_tensor(natural_image(150, 190, seed=6), device=cuda_device)
+    pals = _rand((3, 64, 3), 12, cuda_device)
+    pals[0, 3] = img[50, 60]  # wins at least that pixel
+    pals[0, 7] = pals[0, 3]  # exact duplicates: every one of their scores ties
+    pals[1, 40] = pals[1, 2]
+    feats, pal_feats = img.reshape(-1, 3), pals
+    if space == "lab":
+        feats, pal_feats = cs.srgb_to_lab(feats), cs.srgb_to_lab(pals)
+    feats, pal_feats, opps = feats.contiguous(), pal_feats.contiguous(), cs.srgb_to_opp(pals)
+    kw = dict(precision=precision, tie_mode=tie_mode)
+    before = ak.assign_opp_usage_pop.launches
+    opp, counts, idx = ak.assign_opp_usage_pop(feats, pal_feats, opps, return_index=True, **kw)
+    torch.cuda.synchronize()
+    assert ak.assign_opp_usage_pop.launches == before + 1
+    p_opp, p_counts, p_idx = ak.assign_opp_usage_pop_reference(feats, pal_feats, opps, **kw)
+    if precision == "bf16":
+        # the plain version repeats every bf16 score bit for bit
+        assert torch.equal(idx, p_idx) and torch.equal(counts, p_counts)
+        assert torch.equal(opp, p_opp)
+    else:
+        for p in range(3):
+            ok = ~_distinct_near_tie(feats, pal_feats[p])
+            assert torch.equal(idx[p][ok], p_idx[p][ok])
+            assert torch.equal(opp[p][:, ok], p_opp[p][:, ok])
+        assert (counts - p_counts).abs().sum() <= 2 * int((~ok).sum()) + 2
+    if tie_mode == "average":
+        assert bool((counts.sum(-1) >= feats.shape[0]).all())
+        assert counts[0, 3] == counts[0, 7] > 0  # every tied entry is a hit
+    else:
+        assert bool((counts.sum(-1) == feats.shape[0]).all()) and counts[0, 7] == 0
+
+
+@pytest.mark.parametrize("precision,tie_mode", [("f32x3", "first"), ("bf16", "average")])
+def test_b1_image_axis_is_bit_equal_to_single_images(cuda_device, precision, tie_mode):
+    feats = _rand((3, 97 * 131, 3), 13, cuda_device)
+    pals = _rand((3, 4, 300, 3), 14, cuda_device)
+    opps = cs.srgb_to_opp(pals)
+    kw = dict(precision=precision, tie_mode=tie_mode, return_index=True)
+    before = ak.assign_opp_usage_pop.launches
+    batched = ak.assign_opp_usage_pop(feats, pals, opps, **kw)
+    assert ak.assign_opp_usage_pop.launches == before + 1
+    for i in range(3):
+        single = ak.assign_opp_usage_pop(feats[i], pals[i], opps[i], **kw)
+        for a, b in zip(batched, single):
+            assert torch.equal(a[i], b)
+
+
+def _b2_inputs(dev, B, H, W, seed):
+    img = torch.as_tensor(np.stack([natural_image(H, W, seed=seed + i) for i in range(B)]), device=dev)
+    target = torch.movedim(cs.srgb_to_lab(img), -1, 1).contiguous()
+    q = cs.srgb_to_opp(torch.movedim(_rand((B, 3, 3, H, W), seed, dev), 2, -1))
+    return torch.movedim(q, -1, 2).contiguous(), target
+
+
+@pytest.mark.parametrize("kind", ["CIE76", "CIEDE2000"])
+def test_b2_bf16_matches_plain(cuda_device, kind):
+    f = build_filters()
+    kh, kv = stacked_kernels(f, False, cuda_device), stacked_kernels(f, True, cuda_device)
+    q, target = _b2_inputs(cuda_device, 1, 211, 333, 15)
+    args = (q[0], target[0], kh, kv, cs.WHITEPOINT_D65, kind)
+    got = ff.fused_scielab_err_sums(*args, precision="bf16")
+    again = ff.fused_scielab_err_sums(*args, precision="bf16")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = ff.fused_scielab_err_sums_reference(*args, precision="bf16")
+    torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
+    exact = ff.fused_scielab_err_sums(*args)
+    assert not torch.equal(got, exact)  # the roundings took effect
+
+
+@pytest.mark.parametrize("precision", ["f32x3", "bf16"])
+def test_b2_image_axis_is_bit_equal_to_single_images(cuda_device, precision):
+    f = build_filters()
+    kh, kv = stacked_kernels(f, False, cuda_device), stacked_kernels(f, True, cuda_device)
+    q, target = _b2_inputs(cuda_device, 3, 64, 90, 16)
+    before = ff.fused_scielab_err_sums.launches
+    batched = ff.fused_scielab_err_sums(q, target, kh, kv, cs.WHITEPOINT_D65, precision=precision)
+    assert ff.fused_scielab_err_sums.launches == before + 1 and batched.shape == (3, 3)
+    for i in range(3):
+        single = ff.fused_scielab_err_sums(q[i], target[i], kh, kv, cs.WHITEPOINT_D65, precision=precision)
+        assert torch.equal(batched[i], single)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_batched_fitness_is_bit_equal_to_single_images(cuda_device, fast):
+    kw = dict(precision="bf16", tie_mode="average") if fast else {}
+    cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=16, population=4), assignment_space="lab", **kw)
+    imgs = np.stack([natural_image(72, 96, seed=20 + i) for i in range(3)])
+    pals = _rand((3, 4, 16, 3), 21, cuda_device)
+    f = build_filters()
+    err, use = make_population_fitness(_make_batch_context(imgs, f, cfg, cuda_device), cfg)(pals)
+    for i in range(3):
+        e, u = make_population_fitness(_make_context(imgs[i], f, cfg, cuda_device), cfg)(pals[i])
+        assert torch.equal(err[i], e) and torch.equal(use[i], u)
+
+
+def test_batch_engine_on_the_card_equals_single_image_runs(cuda_device):
+    imax = 5
+    cfg = QuantizationConfig(
+        swasa=SWASAConfig(num_colors=8, population=4, imax=imax), init="kmeans",
+        precision="bf16", tie_mode="average", seed=3,
+    )
+    imgs = np.stack([natural_image(64, 80, seed=30 + i) for i in range(3)])
+    a0, f0 = ak.assign_opp_usage_pop.launches, ff.fused_scielab_err_sums.launches
+    palettes, info = BatchQuantizer(cfg, device=cuda_device).find_palettes(imgs)
+    torch.cuda.synchronize()
+    assert ak.assign_opp_usage_pop.launches - a0 == 1 + imax  # once per iteration, not per image
+    assert ff.fused_scielab_err_sums.launches - f0 == 1 + imax
+    for i in range(3):
+        q = HybridQuantizer(dataclasses.replace(cfg, seed=3 + i), device=cuda_device)
+        pal, single = q.find_palette(imgs[i])
+        assert torch.equal(palettes[i], pal) and float(info["best_errors"][i]) == single["best_error"]

@@ -28,7 +28,7 @@ from hybridquantization_tpu_torch.pipeline import (
 from hybridquantization_tpu_torch.scielab.filters import build_filters
 from hybridquantization_tpu_torch.scielab.transform import stacked_kernels
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_colorspace.py
 
 # Both sides compute in f32 with different summation orders: the JAX test
 # holds its Pallas path to its plain path at atol 2e-5 on the mean

@@ -10,7 +10,7 @@ import torch
 from hybridquantization_tpu.ops import kmeans as jk
 from hybridquantization_tpu_torch.ops import kmeans as tk
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_colorspace.py
 
 CENTER_ATOL = 1e-6  # bin means: f64 sums cast to f32 here, f32 segment sums there
 LLOYD_ATOL = 1e-5   # a few weighted-mean steps, each side rounding in its own order

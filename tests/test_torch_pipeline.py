@@ -4,6 +4,8 @@ seeds, 10 steps, exact polish, dithered quantize, error_image); plus the
 engine's own flow (progress, cancel, chunks, resume) and what it does not
 port yet."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +22,11 @@ from hybridquantization_tpu.swasa import loop as jloop
 from hybridquantization_tpu.swasa.state import state_to_numpy as j_state_to_numpy
 from hybridquantization_tpu_torch import HybridQuantizer, QuantizationConfig, SWASAConfig
 from hybridquantization_tpu_torch import convert
+from hybridquantization_tpu_torch.cli import main
 from hybridquantization_tpu_torch.pipeline import _make_context, make_population_fitness
 from hybridquantization_tpu_torch.swasa import loop as tloop
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_colorspace.py
 
 # 20 steps of f32 fitness values that agree to ~1e-6 (the population-fitness
 # tolerance is 2e-5); colors move by draws both sides share, so they agree to
@@ -158,10 +161,15 @@ def test_seeded_runs_repeat():
         lambda q, img: QuantizationConfig(conv_precision="bf16"),
     ],
 )
-def test_unported_features_raise(call):
+def test_unported_features_raise(call, tmp_path):
+    """The fast modes (once ROADMAP A11) run; only more than one GPU is
+    refused, naming A13."""
     q, img = _small()
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        call(q, img)
+    cfg = dataclasses.replace(call(q, img), swasa=q.config.swasa)
+    _, info = HybridQuantizer(cfg, device="cpu").find_palette(img)
+    assert np.isfinite(info["best_error"]) and info["iterations"] == cfg.swasa.imax
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        main(["quantize-batch", "a.ppm", "--out-dir", str(tmp_path), "--mesh-pixel", "2"], device="cpu")
 
 
 @pytest.mark.parametrize("space", ["srgb", "lab"])

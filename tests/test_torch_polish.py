@@ -18,7 +18,7 @@ from hybridquantization_tpu_torch.ops import assign as tassign
 from hybridquantization_tpu_torch.ops import assign_kernel as ak
 from hybridquantization_tpu_torch.synth import natural_image
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_colorspace.py
 
 # Near ties are relative: LAB scores reach ~1e4, where one f32 ulp is ~1e-3,
 # so two f32 computations of the same score may order entries differently

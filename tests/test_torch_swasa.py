@@ -23,7 +23,7 @@ from hybridquantization_tpu_torch.swasa import loop as tloop
 from hybridquantization_tpu_torch.swasa import schedule as tsched
 from hybridquantization_tpu_torch.swasa.state import state_from_numpy, state_to_numpy
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: see test_torch_colorspace.py
 
 
 def _ite(i):
