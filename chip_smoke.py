@@ -45,9 +45,18 @@ The command writes only those four images and their error images: PNG
 encoding of all 64 (and 64 error images) would spend tens of seconds of
 host time in PIL that measure nothing of the port.
 
+Then the probes' kernels (T1-T8: `csrc/probe_kloop.cu`, `csrc/split_scores.cu`)
+at 4K/K256/pop4 on the probe scripts' own inputs, every variant against its
+plain version (phase_probes), and three more paths, each with the counts
+set to 0 just before and read just after: the probe scripts' entry points
+`tools.vpu_assign_exp`, `tools.kexp_assign` (also once at "highest", which
+runs B1) and `tools.minidot_probe` with every variant (phase_probe_paths).
+The engine paths above must launch none of the probe kernels.
+
 Each phase prints a line or a few. Before the last line it prints the card's
-name and power limit and a JSON object with one entry per kernel (at top
-level its numbers at the batch's largest bucket and its launches there);
+name and power limit and a JSON object with one entry per kernel (B1-B3 at
+top level: their numbers at the batch's largest bucket and their launches
+there; the probe kernels: their first variant and the probe paths' launches);
 the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 so does a machine without a CUDA device.
@@ -89,6 +98,15 @@ CLI_DE_RTOL = 1e-5  # cli `error` vs error_image on the same two files
 BATCH_SIZES = ((1080, 1920), (720, 1280), (768, 1024), (480, 640))
 BATCH_IMAGES = 64
 B3_PER_IMAGE = SEED_STEPS + POLISH + 1  # k-means seeding, polish, quantize
+# the probe kernels (T1-T8): the engine paths launch none of them
+NO_PROBES = {"probe_kloop": 0, "split_rowmax": 0, "split_assign": 0}
+# split-bf16 scores, kernel against plain: the tensor cores' f32 accumulation
+# against a sequential sum of the same 12 exact products, relative to
+# max(1, |score|) (4.8e-7 measured at 4K)
+SPLIT_RTOL = 1e-6
+# bf16 row maxima that may round the other way from plain (1e-5 measured at 4K;
+# a truncating kernel puts about half of them one ulp off)
+BF16_OFF_SHARE = 1e-4
 
 # NVIDIA H100 SXM data sheet peaks (700 W): fp32 outside the tensor cores,
 # dense bf16 on the tensor cores, HBM3 bandwidth
@@ -326,19 +344,24 @@ def phase_small_polish(dev) -> None:
 def _counts() -> dict:
     from hybridquantization_tpu_torch.ops import assign_kernel as ak
     from hybridquantization_tpu_torch.ops import fused_fitness as ff
+    from hybridquantization_tpu_torch.ops import probe_kernels as pk
 
     return {"assign_pop": ak.assign_opp_usage_pop.launches,
             "fused_fitness": ff.fused_scielab_err_sums.launches,
-            "assign_idx": ak.assign_idx.launches}
+            "assign_idx": ak.assign_idx.launches,
+            "probe_kloop": pk.kloop_assign.launches,
+            "split_rowmax": pk.split_rowmax.launches,
+            "split_assign": pk.split_assign.launches}
 
 
 def _reset_counts() -> None:
     from hybridquantization_tpu_torch.ops import assign_kernel as ak
     from hybridquantization_tpu_torch.ops import fused_fitness as ff
+    from hybridquantization_tpu_torch.ops import probe_kernels as pk
 
-    ak.assign_opp_usage_pop.launches = 0
-    ff.fused_scielab_err_sums.launches = 0
-    ak.assign_idx.launches = 0
+    for fn in (ak.assign_opp_usage_pop, ff.fused_scielab_err_sums, ak.assign_idx,
+               pk.kloop_assign, pk.split_rowmax, pk.split_assign):
+        fn.launches = 0
 
 
 def _timed(fn):
@@ -368,7 +391,7 @@ def _run_schedule(img, dev, cfg):
     (mean, viz), t_err = _timed(lambda: q.error_image(img, out))
     launches = _counts()
     want = {"assign_pop": 1 + QS_IMAX, "fused_fitness": 1 + QS_IMAX,
-            "assign_idx": SEED_STEPS + 1 + POLISH + 1}
+            "assign_idx": SEED_STEPS + 1 + POLISH + 1, **NO_PROBES}
     if launches != want:
         fail(f"the schedule launched {launches}, not {want}")
     n_colors = len(torch.unique(out.reshape(-1, 3), dim=0))
@@ -500,7 +523,7 @@ def phase_cli(dev) -> dict:
             fail(f"cli output {out.shape} with {n_colors} colours")
         # B3: the k-means seeding's Lloyd steps, the exact polish, the dithered quantize
         want = {"assign_pop": 1 + CLI_IMAX, "fused_fitness": 1 + CLI_IMAX,
-                "assign_idx": SEED_STEPS + POLISH + 1}
+                "assign_idx": SEED_STEPS + POLISH + 1, **NO_PROBES}
         if first != want:
             fail(f"cli quantize launched {first}, not {want}")
         quant_de = float(re.findall(r"DeltaE : (\S+)", text)[-1])
@@ -509,7 +532,7 @@ def phase_cli(dev) -> dict:
         if "resuming from" not in text2 or f"at iteration {CLI_IMAX}" not in text2:
             fail(f"cli second run did not resume at iteration {CLI_IMAX}: {text2[-500:]}")
         # no seeding and no iteration: B3 only in the polish and the quantize
-        want = {"assign_pop": 0, "fused_fitness": 0, "assign_idx": POLISH + 1}
+        want = {"assign_pop": 0, "fused_fitness": 0, "assign_idx": POLISH + 1, **NO_PROBES}
         if second != want:
             fail(f"cli resumed run launched {second}, not {want}")
 
@@ -744,7 +767,7 @@ def phase_batch(dev) -> dict:
             peak = torch.cuda.max_memory_allocated()
             n, h, w, _ = stack.shape
             want = {"assign_pop": 1 + QS_IMAX, "fused_fitness": 1 + QS_IMAX,
-                    "assign_idx": n * B3_PER_IMAGE}
+                    "assign_idx": n * B3_PER_IMAGE, **NO_PROBES}
             if launches != want:
                 fail(f"batch bucket {w}x{h} of {n} launched {launches}, not {want}")
             colours = max(len(torch.unique(o.reshape(-1, 3), dim=0)) for o in out)
@@ -803,7 +826,7 @@ def phase_batch(dev) -> dict:
         t_cli = time.perf_counter() - t0
         cli_launches = _counts()
         want = {"assign_pop": 4 * (1 + QS_IMAX), "fused_fitness": 4 * (1 + QS_IMAX),
-                "assign_idx": 4 * B3_PER_IMAGE}
+                "assign_idx": 4 * B3_PER_IMAGE, **NO_PROBES}
         if rc != 0 or cli_launches != want:
             fail(f"quantize-batch exited {rc}, launched {cli_launches}, not {want}: {text.getvalue()[-2000:]}")
         lines = [ln for ln in text.getvalue().splitlines() if "error=" in ln and "DeltaE=" in ln]
@@ -896,6 +919,295 @@ def phase_e2e(img, dev) -> tuple[dict, float]:
     return launches, float(mean)
 
 
+def split_bound(P: int, kc: int, pop: int, nbytes: float, f32_per_score: int) -> dict:
+    """The split kernels: 12 bf16 multiply-adds per (pixel, candidate,
+    member) at the bf16 tensor-core peak, and the max (1) or compare and
+    select (2) per score at the fp32 peak; the larger of the two is the
+    operations term (`ops_term` says which), against the bytes."""
+    scores = float(P) * kc * pop
+    tc_ms = 2.0 * 12 * scores / PEAK_BF16 * 1e3
+    f32_ms = f32_per_score * scores / PEAK_F32 * 1e3
+    out = bound(0.0, nbytes)
+    if max(tc_ms, f32_ms) > out["bound_ms"]:
+        out.update(bound_ms=max(tc_ms, f32_ms), bound_by="operations")
+    return {**out, "ops_term": "tensor cores (bf16)" if tc_ms >= f32_ms else "fp32 max/compare",
+            "tensor_ms": tc_ms, "fp32_ms": f32_ms}
+
+
+def _versus(kern, plain, x4, c, o=None):
+    """A kernel and its plain version on the same operands, every pixel:
+    (kernel out, plain out, plain ms)."""
+    want, t = _timed(lambda: plain(x4, c, o))
+    got = kern(x4, c, o)
+    torch.cuda.synchronize()
+    return got, want, t * 1e3
+
+
+def _split_near_ties(x4, c, run, mask) -> tuple[int, float, int]:
+    """(pixels in `mask`, the largest gap between their two best plain split
+    scores relative to max(1, |score|), the number of candidates summed over
+    those pixels whose plain score lies within NEAR_TIE_REL * max(1, |top|)
+    of the top): where kernel and plain disagree (winner, or in average mode
+    the set of hits), that gap must lie in the near-tie class, and in average
+    mode only candidates of the class may change their hits."""
+    from hybridquantization_tpu_torch.ops import probe_kernels as pk
+
+    m, i = torch.nonzero(mask, as_tuple=True)
+    worst, in_class = 0.0, 0
+    for lo in range(0, m.numel(), 1 << 14):
+        mm, ii = m[lo:lo + (1 << 14)], i[lo:lo + (1 << 14)]
+        cands = c[mm] if run is None else c[mm, ii // run]
+        s = pk._split_scores(x4[:, ii][:, :, None], cands)[:, 0]
+        s = torch.where(torch.isnan(s), float("-inf"), s)
+        if s.shape[-1] < 2:
+            return int(m.numel()), float("inf"), 0
+        top, second = torch.topk(s, 2, dim=-1).values.unbind(-1)
+        scale = top.abs().clamp_min(1.0)
+        worst = max(worst, float(((top - second) / scale).max()))
+        in_class += int((s >= (top - NEAR_TIE_REL * scale)[:, None]).sum())
+    return int(m.numel()), worst, in_class
+
+
+def phase_probes(dev) -> dict:
+    """The probes' kernels (T1-T8) at 4K/K256/pop4 on the probe scripts' own
+    inputs (each `main`'s numpy seed-0 draws, palette set 0), every variant
+    against its plain version on every pixel, each distinct launch timed
+    once beside it (kernel: CUDA events over 20 launches; plain: one
+    synchronized call): the k-loop bit for bit (0 colour and count
+    mismatches); the split row max within SPLIT_RTOL, or with bf16 outputs
+    the rounding of a value within SPLIT_RTOL of the plain f32 maximum, the
+    other way from plain on at most BF16_OFF_SHARE of them; the split
+    assignment's index, colour and count mismatches only in the relative
+    near-tie class, counts summing to P per member (hits at least P in
+    average mode). A variant that is the same launch as another carries its
+    time and names it under `same_launch_as`. Returns {kernel: [variant
+    rows]}."""
+    from hybridquantization_tpu_torch.ops import probe_kernels as pk
+    from hybridquantization_tpu_torch.tools import kexp_assign, minidot_probe
+    from hybridquantization_tpu_torch.tools import pack_pixels
+
+    P = H * W
+    rng = np.random.default_rng(0)  # vpu_assign_exp and kexp_assign draw alike
+    feats = torch.as_tensor(rng.random((P, 3), dtype=np.float32), device=dev)
+    pals = torch.as_tensor(rng.random((8, POP, K, 3)).astype(np.float32), device=dev)
+    x4 = pack_pixels(feats)
+    c4, o4 = pk.pack_palette(pals[0], pals[0])
+    del feats, pals
+    rng = np.random.default_rng(0)  # minidot_probe
+    xm = torch.as_tensor(rng.random((4, P), dtype=np.float32), device=dev)
+    cd = torch.as_tensor(rng.random((8, POP, 4, K), dtype=np.float32)[0], device=dev)
+    kc, nr = minidot_probe.KC, minidot_probe.BLOCK // 128
+    cm = {128: rng.random((8, POP, nr, 4, kc), dtype=np.float32)[:1],
+          256: rng.random((8, POP, nr // 2, 4, kc), dtype=np.float32)[:1]}
+    cr = {run: minidot_probe.per_run(torch.as_tensor(a, device=dev), P, run)[0] for run, a in cm.items()}
+    rows = {"probe_kloop": [], "split_rowmax": [], "split_assign": []}
+
+    def row(name_, variant, replaces, ms, plain_ms, b, **extra):
+        rows[name_].append({"variant": variant, "replaces": replaces, "ms": ms, "plain_ms": plain_ms,
+                            **b, **extra})
+        print(f"probe {name_} {variant} 4K K={extra.get('K', K)} pop={POP}: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}); "
+              + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                          for k, v in extra.items() if k != "K"))
+
+    # T1, T2: bit for bit, every schedule against the one plain version
+    vpu_at = "tools/vpu_assign_exp.py"
+    (p_opp, p_counts), plain_s = _timed(lambda: pk.kloop_assign_reference(x4, c4, o4))
+    for label, kw in (("T1 vpu", dict(slots=1, unroll=8)), ("T1 vpu_u4", dict(slots=1, unroll=4)),
+                      ("T1 vpu_u16", dict(slots=1, unroll=16)),
+                      ("T1 vpu_fused", dict(slots=1, fused=True, unroll=8)),
+                      ("T2 grp8", dict(slots=8, unroll=1)), ("T2 grp8s2u4", dict(slots=8, unroll=4))):
+        opp, counts = pk.kloop_assign(x4, c4, o4, **kw)
+        colour = int((opp != p_opp).any(1).sum())
+        count = int((counts - p_counts).abs().sum())
+        if colour or count or not bool((counts.sum(1) == P).all()):
+            fail(f"probe_kloop {label}: {colour} colour and {count} count mismatches against plain")
+        ms = cuda_ms(lambda kw=kw: pk.kloop_assign(x4, c4, o4, **kw), 20)
+        row("probe_kloop", label, f"{vpu_at}:{235 if label.startswith('T1') else 272}", ms, plain_s * 1e3,
+            b1_bound(P, K, POP), max_abs_err=float((opp - p_opp).abs().max()), colour_mismatches=colour,
+            count_mismatches=count)
+    del opp, counts, p_opp, p_counts
+
+    # T3, T5, T6 (and T4's dotmax, on T3's inputs): the split row max
+    mini_at = "tools/minidot_probe.py"
+    for label, replaces, x, c, run, bf in (
+        ("T3 dotf32", f"{vpu_at}:342", x4, c4, None, False),
+        ("T3 dotbf16", f"{vpu_at}:342", x4, c4, None, True),
+        ("T4 dotmax", "tools/kexp_assign.py:271", x4, c4, None, False),
+        ("T5 dense", f"{mini_at}:204", xm, cd, None, False),
+        ("T6 mini128", f"{mini_at}:220", xm, cr[128], 128, False),
+        ("T6 mini256", f"{mini_at}:220", xm, cr[256], 256, False),
+    ):
+        kw = dict(run=run, out_bf16=bf)
+        if label == "T4 dotmax":
+            kern = lambda x, c, o: kexp_assign.run_variant("dotmax", x, c, c)[0][:, 0]  # noqa: E731
+        else:
+            kern = lambda x, c, o, kw=kw: pk.split_rowmax(x, c, **kw)  # noqa: E731
+        got, want, plain_ms = _versus(kern, lambda x, c, o, kw=kw: pk.split_rowmax_reference(x, c, **kw), x, c)
+        rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        if bf:
+            # the kernel rounds its own f32 maximum, within SPLIT_RTOL of the
+            # plain one (dotf32's check): it may round the other way only
+            # where a rounding boundary lies that close
+            m = pk.split_rowmax_reference(x, c, run=run)
+            d = SPLIT_RTOL * m.abs().clamp_min(1.0)
+            outside = int(((got < pk.bf16_round(m - d)) | (got > pk.bf16_round(m + d))).sum())
+            off = int((got != want).sum())
+            if outside or off > BF16_OFF_SHARE * got.numel():
+                fail(f"split_rowmax {label}: {outside} maxima are no rounding of a value within "
+                     f"{SPLIT_RTOL} of the plain f32 maximum; {off} of {got.numel()} round the other "
+                     f"way (limit {BF16_OFF_SHARE})")
+            del m, d
+        else:
+            off = int(((got - want).abs() > SPLIT_RTOL * want.abs().clamp_min(1.0)).sum())
+            if off:
+                fail(f"split_rowmax {label}: {off} row maxima beyond {SPLIT_RTOL} (max rel {rel})")
+        ms = cuda_ms(lambda x=x, c=c, kern=kern: kern(x, c, None), 20)
+        extra = {}
+        if label == "T5 dense":
+            # informative: cuBLAS on the stacked bf16 operands plus a max, two calls
+            xh, xl = pk.split2(x)
+            ch, cl = pk.split2(c)
+            x12 = torch.cat([xh, xl, xh]).T.to(torch.bfloat16).contiguous()
+            c12 = torch.cat([ch, ch, cl], dim=1).to(torch.bfloat16).contiguous()
+            extra["two_call_ms"] = cuda_ms(lambda: torch.matmul(x12, c12).amax(-1), 3, warmup=1)
+            del x12, c12, xh, xl, ch, cl
+            torch.cuda.empty_cache()
+        kcs = c.shape[-1]
+        row("split_rowmax", label, replaces, ms, plain_ms,
+            split_bound(P, kcs, POP, 4.0 * (x.numel() + c.numel() + POP * P), 1),
+            K=kcs, max_abs_err=float((got - want).abs().max()), max_rel_err=rel,
+            mismatches=off if bf else 0, **({"rounded_other_way": off} if bf else {}), **extra)
+        del got, want
+
+    # T4 (every variant of kexp_assign at f32x3), `cur`, T7, T8: the split assignment
+    checked = {}
+    for tie_mode, parts, x, c, o, run, key in (("first", 3, x4, c4, o4, None, "T4"),
+                                                ("average", 3, x4, c4, o4, None, "T4 avg"),
+                                                ("first", 2, xm, cr[128], cr[128], 128, "T7 128"),
+                                                ("first", 2, xm, cr[256], cr[256], 256, "T7 256")):
+        kw = dict(run=run, tie_mode=tie_mode, opp_parts=parts, return_index=True)
+        got, want, plain_ms = _versus(
+            lambda x, c, o, kw=kw: pk.split_assign(x, c, o, **kw),
+            lambda x, c, o, kw=kw: pk.split_assign_reference(x, c, o, **kw), x, c, o)
+        (opp, counts, idx), (p_opp, p_counts, p_idx) = got, want
+        n_idx = int((idx != p_idx).sum())
+        differ = (idx != p_idx) | (opp != p_opp).any(1)
+        n_off, gap, in_class = _split_near_ties(x, c, run, differ)
+        if gap > NEAR_TIE_REL:
+            fail(f"split_assign {key}: {n_off} pixels differ off the near-tie class (rel gap {gap})")
+        # a differing pixel moves one count from one entry to another;
+        # averaging, only the candidates of its near-tie class change their hits
+        limit = 2 * n_off if tie_mode == "first" else in_class
+        count = int((counts - p_counts).abs().sum())
+        total = counts.sum(1)
+        sums_ok = bool((total == P).all()) if tie_mode == "first" else bool((total >= P).all())
+        if not sums_ok or count > limit:
+            fail(f"split_assign {key}: {count} count mismatches for {n_off} differing pixels (limit "
+                 f"{limit}), counts sum to {total.tolist()} ({P} px)")
+        checked[key] = dict(plain_ms=plain_ms, index_mismatches=n_idx, max_rel_gap=gap, differing=n_off,
+                            count_limit=limit, colour_mismatches=int((opp != p_opp).any(1).sum()),
+                            count_mismatches=count,
+                            max_abs_err=float((opp - p_opp).abs().max()), outs=(got, want), kc=c.shape[-1])
+    kexp_at = "tools/kexp_assign.py:271"
+    t4_bytes = 4.0 * (x4.numel() + 2 * c4.numel() + 4 * POP * P + POP * K)
+    timed = {}
+    for v in kexp_assign.VARIANTS:
+        if v == "dotmax":
+            continue  # a row max: split_rowmax's row
+        base = checked["T4 avg" if v == "avg" else "T4"]
+        (opp, counts, idx), (p_opp, p_counts, p_idx) = base["outs"]
+        got = kexp_assign.run_variant(v, x4, c4, o4)
+        want = kexp_assign.variant_outputs(v, p_opp, p_counts, p_idx)
+        off_colour = int((got[0] != want[0]).any(1).sum())
+        off_use = int((got[1].long() - want[1].long()).abs().sum())
+        if off_colour > base["differing"] or off_use > base["count_limit"]:
+            fail(f"kexp_assign {v}: {off_colour} colour and {off_use} usage mismatches for "
+                 f"{base['differing']} near-tie pixels (usage limit {base['count_limit']})")
+        # the schedules are one launch, timed once as `current`
+        same = "current" if v in kexp_assign.SCHEDULES else v
+        if same not in timed:
+            timed[same] = cuda_ms(lambda v=v: kexp_assign.run_variant(v, x4, c4, o4), 20)
+        row("split_assign", f"T4 {v}", kexp_at, timed[same], base["plain_ms"], split_bound(P, K, POP, t4_bytes, 2),
+            **({"same_launch_as": f"T4 {same}"} if same != v else {}),
+            **{k: base[k] for k in ("max_abs_err", "index_mismatches", "max_rel_gap", "count_mismatches")},
+            colour_mismatches=off_colour, usage_mismatches=off_use)
+    t4 = checked["T4"]
+    ms = cuda_ms(lambda: pk.split_assign(x4, c4, o4), 20)  # writes no index: a launch of its own
+    row("split_assign", "T4 cur (vpu_assign_exp)", kexp_at, ms, t4["plain_ms"],
+        split_bound(P, K, POP, 4.0 * (x4.numel() + 2 * c4.numel() + 3 * POP * P + POP * K), 2),
+        **{k: t4[k] for k in ("max_abs_err", "index_mismatches", "max_rel_gap", "colour_mismatches",
+                              "count_mismatches")})
+    for run in (128, 256):
+        # T8 is T7's function: the same launch, timed once
+        base, c = checked[f"T7 {run}"], cr[run]
+        ms = cuda_ms(lambda c=c, run=run: pk.split_assign(xm, c, c, run=run, opp_parts=2), 20)
+        b = split_bound(P, base["kc"], POP, 4.0 * (xm.numel() + 2 * c.numel() + 3 * POP * P + POP * base["kc"]), 2)
+        same = {k: base[k] for k in ("max_abs_err", "index_mismatches", "max_rel_gap", "colour_mismatches",
+                                     "count_mismatches")}
+        row("split_assign", f"T7 minifull{run}", f"{mini_at}:252", ms, base["plain_ms"], b, K=base["kc"], **same)
+        row("split_assign", f"T8 minifull2_{run}", f"{mini_at}:302", ms, base["plain_ms"], b, K=base["kc"],
+            same_launch_as=f"T7 minifull{run}", **same)
+    return rows
+
+
+def phase_probe_paths() -> dict:
+    """The three probe scripts' entry points on the card (python -m
+    hybridquantization_tpu_torch.tools.<name>), each with every variant, the
+    launch counts set to 0 just before and read just after: {path:
+    {"launches": counts, "variants": {label: {"ms", "launches"}}}}."""
+    from hybridquantization_tpu_torch.tools import kexp_assign, minidot_probe, vpu_assign_exp
+
+    runs = {
+        "vpu_assign_exp": (vpu_assign_exp.main, [
+            "cur,vpu,vpu_u4,vpu_u16,vpu_fused,grp8,grp8s2u4,dotf32,dotbf16", "256"],
+            ("probe_kloop", "split_rowmax", "split_assign")),
+        "kexp_assign": (kexp_assign.main, [",".join(kexp_assign.VARIANTS), "256"],
+                        ("split_rowmax", "split_assign")),
+        "kexp_assign_highest": (kexp_assign.main, ["current", "256", "highest"], ("assign_pop",)),
+        "minidot_probe": (minidot_probe.main, ["dense", "mini128", "mini256", "minifull128", "minifull256",
+                                               "minifull2_128", "minifull2_256"],
+                          ("split_rowmax", "split_assign")),
+    }
+    paths = {}
+    for name_, (main_, argv, kernels) in runs.items():
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = main_(argv)
+        torch.cuda.synchronize()
+        launches = _counts()
+        if any(launches[k] == 0 for k in kernels):
+            fail(f"{name_} launched {launches}: each of {kernels} at least once")
+        paths[name_] = {"launches": launches, "seconds": time.perf_counter() - t0,
+                        "variants": {(k if isinstance(k, str) else k[1]): v for k, v in out.items()}}
+        torch.cuda.empty_cache()
+    return paths
+
+
+def probe_kernel_rows(probes: dict, probe_paths: dict, by_path) -> list[dict]:
+    """The probe kernels' rows of the kernels line: at top level their first
+    variant, `launches` from the three probe scripts' paths, and each
+    variant with the launches that script's run of it made."""
+    script_of = {"T1": "vpu_assign_exp", "T2": "vpu_assign_exp", "T3": "vpu_assign_exp",
+                 "T4": "kexp_assign", "T5": "minidot_probe", "T6": "minidot_probe",
+                 "T7": "minidot_probe", "T8": "minidot_probe"}
+    rows = []
+    for name_, source in (("probe_kloop", "csrc/probe_kloop.cu"), ("split_rowmax", "csrc/split_scores.cu"),
+                          ("split_assign", "csrc/split_scores.cu")):
+        common = {"name": name_, "route": "cuda", "source": f"hybridquantization_tpu_torch/{source}"}
+        variants = []
+        for v in probes[name_]:
+            t, label = v["variant"].split(" ")[:2]
+            script = "vpu_assign_exp" if "(vpu_assign_exp)" in v["variant"] else script_of[t]
+            run = probe_paths[script]["variants"][label]
+            variants.append({**common, **v, "launches_from": script,
+                             "launches": run["launches"][name_], "script_ms": run["ms"]})
+        rows.append({**common, **variants[0], "variants": variants,
+                     "launches": sum(r["launches"][name_] for r in probe_paths.values()),
+                     "launches_by_path": by_path(name_)})
+    return rows
+
+
 def main() -> int:
     name, smi = phase_device()
     from hybridquantization_tpu_torch.pipeline import setup_device
@@ -931,8 +1243,12 @@ def main() -> int:
     del img
     torch.cuda.empty_cache()
     batch = phase_batch(dev)
+    torch.cuda.empty_cache()
+    probes = phase_probes(dev)
+    torch.cuda.empty_cache()
+    probe_paths = phase_probe_paths()
     # each kernel: at top level, its check and times at the largest bucket of
-    # this slice's main path (quantize-batch --fast over the 64 images) and
+    # the batch path (quantize-batch --fast over the 64 images) and
     # `launches` from that path; every bucket under "main_path"; the 4K
     # variants under "variants", each with the launches of the 4K path that
     # runs it ("launches_from"; 0 where no path does); the other shapes
@@ -944,6 +1260,13 @@ def main() -> int:
     def at_4k(name_, v):
         path = runs_at_4k.get(v["variant"])
         return {"launches_from": path, "launches": path_counts[path][name_] if path else 0}
+
+    def by_path(name_):
+        return {"e2e_random_imax30": launches[name_], "quality_schedule": quality[name_],
+                "exact_polish_4k": exact[name_], "cli_quantize": cli_counts[name_],
+                "fast_schedule": fast[name_], "quantize_batch_64": batch["launches"][name_],
+                "cli_quantize_batch_4": batch["cli_launches"][name_],
+                **{path: r["launches"][name_] for path, r in probe_paths.items()}}
 
     kernels = []
     for name_, source, replaces, variants, checks in (
@@ -961,15 +1284,9 @@ def main() -> int:
         kernels.append({
             **common, **largest, "launches": batch["launches"][name_], "main_path": main_path,
             "variants": [{**common, **v, **at_4k(name_, v)} for v in variants],
-            "checks": checks,
-            "launches_by_path": {"e2e_random_imax30": launches[name_],
-                                 "quality_schedule": quality[name_],
-                                 "exact_polish_4k": exact[name_],
-                                 "cli_quantize": cli_counts[name_],
-                                 "fast_schedule": fast[name_],
-                                 "quantize_batch_64": batch["launches"][name_],
-                                 "cli_quantize_batch_4": batch["cli_launches"][name_]},
+            "checks": checks, "launches_by_path": by_path(name_),
         })
+    kernels += probe_kernel_rows(probes, probe_paths, by_path)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

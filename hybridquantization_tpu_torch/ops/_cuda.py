@@ -46,6 +46,12 @@ _SIGNATURES = {
     ],
     # H, W -> number of per-member partial sums hq_fused_err_sums writes
     "hq_fused_num_partials": [_I, _I],
+    # x, c4, o4, P, K, pop, slots, fused, unroll, threads, opp, counts, stream
+    "hq_probe_kloop": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # x4, c, P, Kc, pop, run, out_bf16, threads, out, stream
+    "hq_split_rowmax": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # x4, c, o, P, Kc, pop, run, average, opp_parts, threads, opp, counts, idx, stream
+    "hq_split_assign": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

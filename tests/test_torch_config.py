@@ -137,7 +137,10 @@ def test_import_loads_no_jax():
         "import hybridquantization_tpu_torch.cli, hybridquantization_tpu_torch.checkpoint\n"
         "import hybridquantization_tpu_torch.io, hybridquantization_tpu_torch.metrics\n"
         "import hybridquantization_tpu_torch.parallel.batch, hybridquantization_tpu_torch.native\n"
-        "import hybridquantization_tpu_torch.batching\n"
+        "import hybridquantization_tpu_torch.batching, hybridquantization_tpu_torch.ops.probe_kernels\n"
+        "import hybridquantization_tpu_torch.tools.vpu_assign_exp\n"
+        "import hybridquantization_tpu_torch.tools.kexp_assign\n"
+        "import hybridquantization_tpu_torch.tools.minidot_probe\n"
         "import chip_smoke, chip_profile\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('hybridquantization_tpu.') or m == 'hybridquantization_tpu')\n"

@@ -18,6 +18,7 @@ from hybridquantization_tpu_torch import HybridQuantizer, QuantizationConfig, SW
 from hybridquantization_tpu_torch.ops import assign as assign_ops
 from hybridquantization_tpu_torch.ops import assign_kernel as ak
 from hybridquantization_tpu_torch.ops import fused_fitness as ff
+from hybridquantization_tpu_torch.ops import probe_kernels as pk
 from hybridquantization_tpu_torch.parallel import BatchQuantizer
 from hybridquantization_tpu_torch.pipeline import (
     _make_batch_context,
@@ -36,6 +37,12 @@ NEAR_TIE = 1e-5  # |score gap| (f64) within which f32 rounding may pick either e
 # B3: near ties are relative, LAB scores reach ~1e4 where one f32 ulp is ~1e-3
 NEAR_TIE_REL = 1e-6
 SUM_RTOL = 1e-5  # B2: f32 filters in another FMA order; sums reduced in f64 vs f32
+# split-bf16 scores: the tensor cores' f32 accumulation against the plain
+# version's sequential sum of the same 12 exact products (measured <= 4.8e-7 at 4K)
+SPLIT_RTOL = 1e-6
+# bf16 row maxima that may round the other way from plain (1e-5 measured at 4K;
+# a truncating kernel puts about half of them one ulp off)
+BF16_OFF_SHARE = 1e-4
 
 
 @pytest.fixture
@@ -341,6 +348,147 @@ def test_batched_fitness_is_bit_equal_to_single_images(cuda_device, fast):
     for i in range(3):
         e, u = make_population_fitness(_make_context(imgs[i], f, cfg, cuda_device), cfg)(pals[i])
         assert torch.equal(err[i], e) and torch.equal(use[i], u)
+
+
+def _probe_inputs(P, K, pop, seed, dev, ones=True):
+    """x4 (4, P) and packed palettes (pop, 4, K) with an exact duplicate entry."""
+    g = np.random.default_rng(seed)
+    x4 = torch.tensor(g.random((4, P), dtype=np.float32))
+    if ones:
+        x4[3] = 1.0
+    pals = torch.tensor(g.random((pop, K, 3), dtype=np.float32))
+    pals[0, min(5, K - 1)] = pals[0, 0]
+    c4, o4 = pk.pack_palette(pals, pals)
+    return x4.to(dev), c4.to(dev), o4.to(dev)
+
+
+# P not a multiple of any block; K not a multiple of 8 or 16
+PROBE_SHAPES = [(52073, 77, 4), (8 * 1024, 256, 4), (1000, 3, 2)]
+
+
+@pytest.mark.parametrize("P,K,pop", PROBE_SHAPES)
+def test_kloop_kernel_is_bit_equal_to_plain(cuda_device, P, K, pop):
+    """T1/T2: every schedule gives the plain version's colours and counts bit for bit."""
+    x4, c4, o4 = _probe_inputs(P, K, pop, P + K, cuda_device)
+    c4[pop - 1, 0, K // 2] = float("nan")  # never wins
+    want = pk.kloop_assign_reference(x4, c4, o4)
+    before = pk.kloop_assign.launches
+    runs = 0
+    for slots in pk.SLOTS:
+        for fused in (False, True):
+            for unroll in pk.UNROLLS:
+                opp, counts = pk.kloop_assign(x4, c4, o4, slots=slots, fused=fused, unroll=unroll)
+                torch.cuda.synchronize()
+                runs += 1
+                assert torch.equal(opp, want[0]) and torch.equal(counts, want[1]), (slots, fused, unroll)
+    assert pk.kloop_assign.launches == before + runs
+    assert bool((want[1].sum(1) == P).all()) and want[1][pop - 1, K // 2] == 0
+
+
+def _split_scores_close(got, want):
+    """The tensor cores' f32 accumulation: within SPLIT_RTOL * max(1, |s|)."""
+    return bool(((got - want).abs() <= SPLIT_RTOL * want.abs().clamp_min(1.0)).all())
+
+
+@pytest.mark.parametrize("P,K,pop", PROBE_SHAPES)
+@pytest.mark.parametrize("run", [None, 128, 100])
+def test_split_rowmax_kernel_matches_plain(cuda_device, P, K, pop, run):
+    x4, c4, _ = _probe_inputs(P, K, pop, 2 * P + K, cuda_device, ones=run is None)
+    if run is not None:
+        g = torch.Generator().manual_seed(K)
+        c4 = torch.rand((pop, -(-P // run), 4, K), generator=g).to(cuda_device)
+    before = pk.split_rowmax.launches
+    got = pk.split_rowmax(x4, c4, run=run)
+    bf = pk.split_rowmax(x4, c4, run=run, out_bf16=True)
+    torch.cuda.synchronize()
+    assert pk.split_rowmax.launches == before + 2
+    want = pk.split_rowmax_reference(x4, c4, run=run)
+    assert _split_scores_close(got, want)
+    # rounded scores: the kernel rounds its own f32 maximum, within SPLIT_RTOL
+    # of the plain one, so it may round the other way only where a rounding
+    # boundary lies that close, and that on few outputs
+    d = SPLIT_RTOL * want.abs().clamp_min(1.0)
+    assert bool(((bf >= ak.bf16_round(want - d)) & (bf <= ak.bf16_round(want + d))).all())
+    bf_want = pk.split_rowmax_reference(x4, c4, run=run, out_bf16=True)
+    assert int((bf != bf_want).sum()) <= max(1.0, BF16_OFF_SHARE * bf.numel())
+    assert torch.equal(bf, ak.bf16_round(bf))
+
+
+def _check_split_assign(x4, c, o, run, tie_mode, parts):
+    """split_assign on the card against its plain version: indices, colours
+    and counts differ only at pixels in the relative near-tie class."""
+    opp, counts, idx = pk.split_assign(x4, c, o, run=run, tie_mode=tie_mode, opp_parts=parts,
+                                       return_index=True)
+    torch.cuda.synchronize()
+    p_opp, p_counts, p_idx = pk.split_assign_reference(x4, c, o, run=run, tie_mode=tie_mode,
+                                                       opp_parts=parts, return_index=True)
+    # pixels whose winner (or, averaging, set of hits) differs: their two
+    # best plain scores must lie in the near-tie class
+    differ = (idx != p_idx) | (opp != p_opp).any(1)
+    n_diff, in_class = int(differ.sum()), 0
+    if n_diff:
+        m, i = torch.nonzero(differ, as_tuple=True)
+        cands = c[m] if run is None else c[m, i // run]
+        s = pk._split_scores(x4[:, i][:, :, None], cands)[:, 0]  # (n_diff, Kc) plain scores
+        top, second = torch.topk(s, 2, dim=-1).values.unbind(-1)
+        near = NEAR_TIE_REL * top.abs().clamp_min(1.0)
+        assert bool(((top - second) <= near).all())
+        in_class = int((s >= (top - near)[:, None]).sum())
+    # a differing pixel moves one count from one entry to another; averaging,
+    # only the candidates of its near-tie class change their hits
+    limit = 2 * n_diff if tie_mode == "first" else in_class
+    assert int((counts - p_counts).abs().sum()) <= limit
+    return counts, idx
+
+
+@pytest.mark.parametrize("P,K,pop", PROBE_SHAPES)
+@pytest.mark.parametrize("tie_mode,parts", [("first", 3), ("first", 2), ("average", 3)])
+def test_split_assign_dense_kernel_matches_plain(cuda_device, P, K, pop, tie_mode, parts):
+    x4, c4, o4 = _probe_inputs(P, K, pop, 3 * P + K, cuda_device)
+    before = pk.split_assign.launches
+    counts, _ = _check_split_assign(x4, c4, o4, None, tie_mode, parts)
+    assert pk.split_assign.launches == before + 1
+    if tie_mode == "first":
+        assert bool((counts.sum(1) == P).all())
+    else:
+        assert bool((counts.sum(1) >= P).all())
+
+
+@pytest.mark.parametrize("P", [52073, 8 * 1024])
+@pytest.mark.parametrize("run", [128, 256, 100])
+def test_split_assign_per_run_kernel_matches_plain(cuda_device, P, run):
+    g = torch.Generator().manual_seed(P + run)
+    x4 = torch.rand((4, P), generator=g).to(cuda_device)
+    c = torch.rand((4, -(-P // run), 4, 64), generator=g).to(cuda_device)
+    c[:, :, :, 7] = c[:, :, :, 3]
+    counts, idx = _check_split_assign(x4, c, c, run, "first", 2)
+    assert bool((counts.sum(1) == P).all()) and int(counts[:, 7].sum()) == 0
+
+
+def test_probe_wrappers_raise_without_the_library(cuda_device, monkeypatch):
+    """A CUDA tensor launches the kernel or raises; it never runs the plain version."""
+    from hybridquantization_tpu_torch.ops import _cuda
+
+    def no_library():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_cuda, "library", no_library)
+    x4, c4, o4 = _probe_inputs(1000, 16, 2, 1, cuda_device)
+    for call in (lambda: pk.kloop_assign(x4, c4, o4), lambda: pk.split_rowmax(x4, c4),
+                 lambda: pk.split_assign(x4, c4, o4)):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()
+
+
+def test_probe_tools_run_on_the_card(cuda_device):
+    from hybridquantization_tpu_torch.tools import kexp_assign, minidot_probe, vpu_assign_exp
+
+    before = (pk.kloop_assign.launches, pk.split_rowmax.launches, pk.split_assign.launches)
+    vpu_assign_exp.main(["vpu,vpu_fused,grp8,dotbf16,cur", "128"], shape=(64, 128))
+    kexp_assign.main([",".join(kexp_assign.VARIANTS), "256"], shape=(64, 128))
+    minidot_probe.main(["dense", "mini256", "minifull128"], shape=(64, 128))
+    after = (pk.kloop_assign.launches, pk.split_rowmax.launches, pk.split_assign.launches)
+    assert all(a > b for a, b in zip(after, before))
 
 
 def test_batch_engine_on_the_card_equals_single_image_runs(cuda_device):
