@@ -53,6 +53,30 @@ set to 0 just before and read just after: the probe scripts' entry points
 runs B1) and `tools.minidot_probe` with every variant (phase_probe_paths).
 The engine paths above must launch none of the probe kernels.
 
+Then the multi-device engine (parallel/, phase_mesh_b2s and phase_mesh):
+
+  (a) B2s, B2 with column guards, at 3840x2160, K=256, pop 4 on B1's
+      winners, split over 2 and over 4 shards by the engine's column plan:
+      each shard against its plain version, the shards' total against
+      whole-image B2, each shard timed beside mirror B2 on its width;
+  (b) ShardedBatchQuantizer, strategy "columns", mesh (1, 1, 2): 2 gloo
+      ranks sharing card 0 (spawned after the build), the quality schedule
+      on the 4K frame (k-means, imax=50, polish 10, quantize, error_images),
+      each rank's counts set to 0 just before and read just after; the
+      ranks must agree bit for bit, their fitness of fixed palettes must
+      equal the one-device engine's, and the anneal is printed beside
+      `BatchQuantizer`'s at the same seed (final mean dE within 1%);
+  (c) at 1920x1080 (crops of the 4K frame), imax 10, in one group of 4
+      gloo ranks: rows (1, 1, 2), columns (1, 1, 2) and the pop axis
+      (1, 2, 2), which must equal (1, 1, 2) bit for bit, and data (2, 1, 1)
+      on two images, which must equal `BatchQuantizer` bit for bit;
+  (d) with two cards or more, (b) again over NCCL, one rank per card, and
+      the seconds per iteration per shard count of
+      `tools.bench_multichip.measure_scaling`; on one card it says why not.
+
+Ranks that share a card measure correctness and overhead, not scaling:
+their collectives go through the host under gloo.
+
 Each phase prints a line or a few. Before the last line it prints the card's
 name and power limit and a JSON object with one entry per kernel (B1-B3 at
 top level: their numbers at the batch's largest bucket and their launches
@@ -67,6 +91,7 @@ Imports torch, numpy, the standard library and the port; never jax.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import multiprocessing
@@ -107,6 +132,12 @@ SPLIT_RTOL = 1e-6
 # bf16 row maxima that may round the other way from plain (1e-5 measured at 4K;
 # a truncating kernel puts about half of them one ulp off)
 BF16_OFF_SHARE = 1e-4
+
+# the multi-device phases: B2s's shard counts, the smaller checks' frame and anneal
+MESH_SHARDS = (2, 4)
+MESH_H, MESH_W, MESH_IMAX = 1080, 1920, 10
+MESH_DE_REL = 0.01  # final mean dE of the 2-rank anneal against the one-device one
+FIT_RTOL = 1e-5   # fitness of fixed palettes, mesh against one device
 
 # NVIDIA H100 SXM data sheet peaks (700 W): fp32 outside the tensor cores,
 # dense bf16 on the tensor cores, HBM3 bandwidth
@@ -362,6 +393,7 @@ def _reset_counts() -> None:
     for fn in (ak.assign_opp_usage_pop, ff.fused_scielab_err_sums, ak.assign_idx,
                pk.kloop_assign, pk.split_rowmax, pk.split_assign):
         fn.launches = 0
+    ff.fused_scielab_err_sums.slab_launches = 0
 
 
 def _timed(fn):
@@ -1207,6 +1239,282 @@ def probe_kernel_rows(probes: dict, probe_paths: dict, by_path) -> list[dict]:
                      "launches_by_path": by_path(name_)})
     return rows
 
+def b2s_bound(H: int, Ws: int, taps: int, pop: int) -> dict:
+    """B2s on a shard of Ws columns: B2's work at that width, plus the two
+    guards' bytes (pop x 3 x H x taps // 2 floats each)."""
+    return bound(2.0 * 2 * 7 * taps * pop * H * Ws,
+                 4.0 * (3 * pop * H * Ws + 3 * H * Ws + 14 * taps + pop + 2 * pop * 3 * H * (taps // 2)))
+
+
+def _b2s_args(q, target, kh, kv, lo: int, hi: int):
+    """(args, guards) of B2s on columns [lo, hi) of the (pop, 3, H, W) q:
+    the guards are the columns beyond the shard, mirrored at the frame's
+    borders (parallel.fast._column_guards across ranks)."""
+    from hybridquantization_tpu_torch import colorspace as cs
+
+    half, W = kh.shape[1] // 2, q.shape[-1]
+    left = q[..., lo - half:lo] if lo else q[..., :half].flip(-1)
+    right = q[..., hi:hi + half] if hi < W else q[..., hi - half:hi].flip(-1)
+    args = (q[..., lo:hi].contiguous(), target[..., lo:hi].contiguous(), kh, kv, cs.WHITEPOINT_D65, "CIE76")
+    return args, {"left_slab": left.contiguous(), "right_slab": right.contiguous()}
+
+
+def phase_mesh_b2s(img, opp, dev) -> list[dict]:
+    """(a) B2s at 4K/pop4 on B1's winners over 2 and 4 shards of the column
+    plan: each shard's sums twice (bit-equal) and against the plain version
+    (B2_RTOL), the shards' total against whole-image B2 (B2_RTOL), each
+    shard timed (CUDA events) beside mirror B2 on its width."""
+    from hybridquantization_tpu_torch import QuantizationConfig
+    from hybridquantization_tpu_torch import colorspace as cs
+    from hybridquantization_tpu_torch.ops import fused_fitness as ff
+    from hybridquantization_tpu_torch.parallel import plan_fast
+    from hybridquantization_tpu_torch.pipeline import _make_context
+    from hybridquantization_tpu_torch.scielab.filters import build_filters
+
+    (h, w, _), pop = img.shape, opp.shape[0]
+    ctx = _make_context(img, build_filters(), QuantizationConfig(), dev)
+    kh, kv, target = ctx["kh"], ctx["kv"], ctx["target_planar"]
+    taps = kh.shape[1]
+    q = opp.reshape(pop, 3, h, w)
+    whole = ff.fused_scielab_err_sums(q, target, kh, kv, cs.WHITEPOINT_D65, "CIE76").double()
+    rows = []
+    for n in MESH_SHARDS:
+        cols, ok = plan_fast(h, w, taps // 2, n)
+        if not ok:
+            fail(f"column plan of {w}x{h} over {n} shards infeasible")
+        shards, total = [], torch.zeros_like(whole)
+        for lo, hi in cols:
+            args, guards = _b2s_args(q, target, kh, kv, lo, hi)
+            got = ff.fused_scielab_err_sums(*args, **guards)
+            again = ff.fused_scielab_err_sums(*args, **guards)
+            want = ff.fused_scielab_err_sums_reference(*args, **guards)
+            torch.cuda.synchronize()
+            rel = ((got.double() - want.double()).abs() / want.double().abs()).max().item()
+            if not (torch.equal(got, again) and bool(torch.isfinite(got).all()) and rel <= B2_RTOL):
+                fail(f"B2s shard [{lo}, {hi}) of {n}: {got.tolist()} (again {again.tolist()}) vs plain "
+                     f"{want.tolist()}: rel {rel}")
+            total += got.double()
+            ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, **guards), 20)
+            mirror_ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args), 20)
+            plain_ms = cuda_ms(lambda: ff.fused_scielab_err_sums_reference(*args, **guards), 3, warmup=1)
+            shards.append({"cols": [lo, hi], "ms": ms, "mirror_ms": mirror_ms, "plain_ms": plain_ms,
+                           "max_abs_err": float((got - want).abs().max()), "max_rel_err": rel,
+                           **b2s_bound(h, hi - lo, taps, pop)})
+        total_rel = ((total - whole).abs() / whole.abs()).max().item()
+        if total_rel > B2_RTOL:
+            fail(f"B2s over {n} shards: total {total.tolist()} vs whole-image B2 {whole.tolist()}")
+        mean = {k: sum(r[k] for r in shards) / n for k in ("ms", "mirror_ms", "plain_ms")}
+        print(f"B2s fused_fitness slabs {w}x{h} pop={pop} over {n} shards of {cols[0][1] - cols[0][0]} columns: "
+              f"per shard kernel {', '.join(f'{r['ms']:.3f}' for r in shards)} ms (mirror B2 on the same width "
+              f"{', '.join(f'{r['mirror_ms']:.3f}' for r in shards)} ms), plain "
+              f"{', '.join(f'{r['plain_ms']:.3f}' for r in shards)} ms, bound {shards[0]['bound_ms']:.3f} ms "
+              f"({shards[0]['bound_by']}); max rel diff from plain "
+              f"{max(r['max_rel_err'] for r in shards):.3g} <= {B2_RTOL}; shards' total vs whole-image B2 "
+              f"{total_rel:.3g}")
+        rows.append({"variant": f"slabs, {n} shards", "shards": n,
+                     "shape": f"{cols[0][1] - cols[0][0]}x{h} per shard of {w}x{h}", "pop": pop,
+                     "max_abs_err": max(r["max_abs_err"] for r in shards),
+                     "max_rel_err": max(r["max_rel_err"] for r in shards), "total_rel_err": total_rel,
+                     **mean, **{k: shards[0][k] for k in ("bound_ms", "bound_by", "library_ms")},
+                     "per_shard": shards})
+    return rows
+
+
+def _fixed_palettes(device) -> torch.Tensor:
+    """(1, POP, K, 3) palettes for the mesh's fitness check, the same everywhere."""
+    return torch.rand((1, POP, K, 3), generator=torch.Generator().manual_seed(7)).to(device)
+
+
+def _rank_counts() -> dict:
+    from hybridquantization_tpu_torch.ops import fused_fitness as ff
+
+    return {**_counts(), "fused_fitness_slabs": ff.fused_scielab_err_sums.slab_launches}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _mesh_engine_rank(rank, frame_path, shape, device) -> dict:
+    """(b)/(d): one rank of ShardedBatchQuantizer (columns) on the 4K frame,
+    the quality schedule with its counts set to 0 just before and read just
+    after, then its fitness of the fixed palettes."""
+    from hybridquantization_tpu_torch import QuantizationConfig, SWASAConfig
+    from hybridquantization_tpu_torch.parallel import ShardedBatchQuantizer, make_mesh
+
+    n_data, n_pop, n_pixel = shape
+    cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=K, population=POP, imax=QS_IMAX), init="kmeans")
+    q = ShardedBatchQuantizer(cfg, make_mesh(n_data, n_pixel, n_pop, device), strategy="columns")
+    images = torch.as_tensor(np.load(frame_path)[None], device=q.device)
+    _sync(q.device)
+    _reset_counts()
+    t0 = time.perf_counter()
+    out, info = q.run(images, polish_iters=POLISH)
+    de, _ = q.error_images(images, out)
+    _sync(q.device)
+    secs = time.perf_counter() - t0
+    launches = _rank_counts()
+    err, use = q._columns[0](images)(_fixed_palettes(q.device))
+    return {"palettes": info["palettes"].cpu().numpy(), "best_errors": info["best_errors"],
+            "telemetry": info["telemetry"]["best_error"], "de": de.cpu().numpy(),
+            "out_sha": hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest(),
+            "colours": len(torch.unique(out.reshape(-1, 3), dim=0)), "err": err.cpu().numpy(),
+            "use": use.cpu().numpy(), "launches": launches, "seconds": secs, "anneal_seconds": info["seconds"],
+            "device": str(q.device), "backend": q.mesh.backend}
+
+
+def _mesh_small_rank(rank, frames_path, device) -> dict:
+    """(c): one of 4 gloo ranks: rows and columns on (1, 1, 2) (ranks 0 and
+    1), the pop axis on (1, 2, 2), data on (2, 1, 1) (ranks 0 and 1), each
+    find_palettes with the counts set to 0 just before and read just after."""
+    from hybridquantization_tpu_torch import QuantizationConfig, SWASAConfig
+    from hybridquantization_tpu_torch.parallel import ShardedBatchQuantizer, make_mesh
+
+    frames = np.load(frames_path)
+    cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=K, population=POP, imax=MESH_IMAX), init="kmeans")
+    line, pop, data = (make_mesh(1, 2, 1, device), make_mesh(1, 2, 2, device), make_mesh(2, 1, 1, device))
+    out = {}
+
+    def run(name, mesh, strategy, images):
+        q = ShardedBatchQuantizer(cfg, mesh, strategy=strategy)
+        images = torch.as_tensor(images, device=q.device)
+        _sync(q.device)
+        _reset_counts()
+        pals, info = q.find_palettes(images)
+        _sync(q.device)
+        out[name] = {"palettes": pals.cpu().numpy(), "best_errors": info["best_errors"],
+                     "launches": _rank_counts(), "seconds": info["seconds"]}
+
+    if line.member:
+        run("rows", line, "rows", frames[:1])
+        run("columns", line, "columns", frames[:1])
+    run("pop", pop, "columns", frames[:1])
+    if data.member:
+        run("data", data, "auto", frames)
+    return out
+
+
+def _agree(ranks: list, what: str, skip=("seconds", "anneal_seconds", "device")) -> None:
+    """Fail unless every rank's results equal rank 0's, bit for bit."""
+    for r, res in enumerate(ranks[1:], 1):
+        for k, v in res.items():
+            if k in skip:
+                continue
+            if isinstance(v, dict):
+                _agree([ranks[0][k], v], f"{what} {k}", skip)
+            elif not np.array_equal(np.asarray(v), np.asarray(ranks[0][k])):
+                fail(f"{what}: rank {r} differs from rank 0 in {k}")
+
+
+def _engine_against_one_device(ranks, img, dev, label) -> dict:
+    """(b)/(d): the mesh's fitness of the fixed palettes and its anneal
+    against BatchQuantizer's on the same frame and seed."""
+    from hybridquantization_tpu_torch import QuantizationConfig, SWASAConfig
+    from hybridquantization_tpu_torch.parallel import BatchQuantizer
+    from hybridquantization_tpu_torch.pipeline import _make_batch_context, make_population_fitness
+
+    _agree(ranks, label)
+    r0 = ranks[0]
+    cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=K, population=POP, imax=QS_IMAX), init="kmeans")
+    bq = BatchQuantizer(cfg, device=dev)
+    images = torch.as_tensor(img[None], device=dev)
+    err, use = make_population_fitness(_make_batch_context(images, bq.filters, cfg, dev), cfg)(_fixed_palettes(dev))
+    fit_rel = float(np.max(np.abs(r0["err"].astype(np.float64) - err.cpu().numpy()) / err.cpu().numpy()))
+    if fit_rel > FIT_RTOL or not np.array_equal(r0["use"], use.cpu().numpy()):
+        fail(f"{label}: fitness of fixed palettes {r0['err'].tolist()} vs one device {err.tolist()} "
+             f"(rel {fit_rel}), usage equal {np.array_equal(r0['use'], use.cpu().numpy())}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, info = bq.run(images, polish_iters=POLISH)
+    de, _ = bq.error_images(images, out)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    de_rel = float(r0["de"][0]) / float(de[0]) - 1
+    want = {"assign_pop": POP * (1 + QS_IMAX), "fused_fitness": POP * (1 + QS_IMAX),
+            "fused_fitness_slabs": POP * (1 + QS_IMAX), "assign_idx": SEED_STEPS + POLISH + 1, **NO_PROBES}
+    if r0["launches"] != want:
+        fail(f"{label}: each rank launched {r0['launches']}, not {want}")
+    if abs(de_rel) > MESH_DE_REL or r0["colours"] > K:
+        fail(f"{label}: mean dE {float(r0['de'][0])} vs one device {float(de[0])}, {r0['colours']} colours")
+    traj, one = r0["telemetry"][:, 0], info["telemetry"]["best_error"][:, 0]
+    steps = sorted({min(s, QS_IMAX - 1) for s in (0, 9, 24, QS_IMAX - 1)})
+    print(f"{label}: {len(ranks)} ranks ({r0['backend']} on {', '.join(r['device'] for r in ranks)}) bit-equal; "
+          f"fitness of fixed palettes within {fit_rel:.3g} (<= {FIT_RTOL}) of one device, usage equal; quality "
+          f"schedule {r0['seconds']:.3f} s (anneal {r0['anneal_seconds']:.3f} s, "
+          f"{r0['anneal_seconds'] / QS_IMAX:.4f} s/iter) vs one device {secs:.3f} s (anneal {info['seconds']:.3f} s); "
+          f"best fitness after iterations {[s + 1 for s in steps]}: mesh {[float(traj[s]) for s in steps]}, one "
+          f"device {[float(one[s]) for s in steps]}; mean S-CIELAB dE {float(r0['de'][0]):.5f} vs "
+          f"{float(de[0]):.5f} ({100 * de_rel:+.3f}%, limit {100 * MESH_DE_REL:.0f}%); launches per rank "
+          f"{r0['launches']}")
+    return {"ranks": len(ranks), "backend": r0["backend"], "seconds": r0["seconds"],
+            "anneal_s_per_iter": r0["anneal_seconds"] / QS_IMAX, "one_device_seconds": secs,
+            "one_device_anneal_s_per_iter": info["seconds"] / QS_IMAX, "mean_de": float(r0["de"][0]),
+            "one_device_mean_de": float(de[0]), "fitness_rel": fit_rel, "launches": r0["launches"]}
+
+
+def phase_mesh(img, dev) -> dict:
+    """(b), (c) and (d) of the module doc. Returns their numbers and each
+    path's per-rank launches."""
+    from hybridquantization_tpu_torch import QuantizationConfig, SWASAConfig
+    from hybridquantization_tpu_torch.parallel import BatchQuantizer
+    from hybridquantization_tpu_torch.parallel.multihost import launch
+
+    cards = torch.cuda.device_count()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        frame, frames = os.path.join(tmp, "frame.npy"), os.path.join(tmp, "frames.npy")
+        np.save(frame, img)
+        small = np.stack([img[:MESH_H, :MESH_W], img[-MESH_H:, -MESH_W:]])
+        np.save(frames, small)
+        print(f"mesh (b): 2 gloo ranks sharing card 0 ({torch.cuda.get_device_name(0)}; {cards} card(s)); "
+              "their collectives go through the host")
+        t0 = time.perf_counter()
+        card0 = "cuda:0" if dev.type == "cuda" else "cpu"
+        ranks = launch(_mesh_engine_rank, 2, (frame, (1, 1, 2), card0), device=dev.type, backend="gloo")
+        res["columns_4k"] = _engine_against_one_device(
+            ranks, img, dev, f"mesh (b) columns 1x1x2 {W}x{H} K={K} pop={POP} kmeans imax={QS_IMAX} polish {POLISH}")
+        res["columns_4k"]["launch_seconds"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        ranks = launch(_mesh_small_rank, 4, (frames, dev.type), device=dev.type, backend="gloo")
+        for name in ("rows", "columns", "pop", "data"):
+            _agree([r[name] for r in ranks if name in r], f"mesh (c) {name}")
+        got = ranks[0]
+        for k in ("palettes", "best_errors"):
+            if not np.array_equal(got["pop"][k], got["columns"][k]):
+                fail(f"mesh (c): the pop axis (1x2x2) differs from (1x1x2) in {k}")
+        cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=K, population=POP, imax=MESH_IMAX), init="kmeans")
+        pals, info = BatchQuantizer(cfg, device=dev).find_palettes(small)
+        if not (np.array_equal(got["data"]["palettes"], pals.cpu().numpy())
+                and np.array_equal(got["data"]["best_errors"], info["best_errors"])):
+            fail("mesh (c): the data axis (2x1x1) differs from the one-device engine")
+        rows_rel = float(got["rows"]["best_errors"][0] / got["columns"]["best_errors"][0] - 1)
+        if abs(rows_rel) > MESH_DE_REL:
+            fail(f"mesh (c): rows best fitness {got['rows']['best_errors']} vs columns {got['columns']['best_errors']}")
+        print(f"mesh (c) {MESH_W}x{MESH_H} K={K} pop={POP} kmeans imax={MESH_IMAX}, 4 gloo ranks on card 0: "
+              f"pop axis 1x2x2 bit-equal to 1x1x2 columns (best {got['pop']['best_errors'].tolist()}); data 2x1x1 "
+              f"bit-equal to BatchQuantizer (best {got['data']['best_errors'].tolist()}); rows 1x1x2 best "
+              f"{got['rows']['best_errors'].tolist()} ({100 * rows_rel:+.3f}% from columns); anneal s: "
+              + ", ".join(f"{n} {got[n]['seconds']:.3f}" for n in ("rows", "columns", "pop", "data"))
+              + "; launches per rank (rank 0): "
+              + "; ".join(f"{n} {got[n]['launches']}" for n in ("rows", "columns", "pop", "data")))
+        res["small"] = {n: {"seconds": got[n]["seconds"], "launches": got[n]["launches"],
+                            "best_errors": got[n]["best_errors"].tolist()} for n in ("rows", "columns", "pop", "data")}
+        res["small"]["launch_seconds"] = time.perf_counter() - t0
+
+        if cards >= 2:
+            from hybridquantization_tpu_torch.tools.bench_multichip import measure_scaling
+
+            ranks = launch(_mesh_engine_rank, 2, (frame, (1, 1, 2), "cuda"), device="cuda", backend="nccl")
+            res["nccl"] = _engine_against_one_device(ranks, img, dev, "mesh (d) NCCL columns 1x1x2, one rank per card")
+            res["scaling"] = measure_scaling([n for n in (1, 2, 4, 8) if n <= cards], H, W, K, POP, iters=10,
+                                             reps=3, log=lambda line: print(f"mesh (d) scaling {line}"))
+        else:
+            print(f"mesh (d) not run: {cards} card; NCCL needs one card per rank, and (b) and (c) share the card "
+                  "under gloo")
+    return res
+
 
 def main() -> int:
     name, smi = phase_device()
@@ -1227,6 +1535,7 @@ def main() -> int:
     b1_cli, cli_opp = phase_b1(cli_dev, cli_pals)
     b2 = phase_b2(img, opp, dev)
     b2_cli = phase_b2(cli_img, cli_opp, dev)
+    b2s = phase_mesh_b2s(img, opp, dev)
     # the cli frame is under 2^20 pixels: its polish is exact, only its seeding bins
     b3 = phase_b3([(f"{W}x{H}", img_dev, pals[0].contiguous(), (5, 6)),
                    (f"{CLI_W}x{CLI_H}", cli_dev, cli_pals[0].contiguous(), (5,))])
@@ -1240,13 +1549,14 @@ def main() -> int:
     quality, exact = phase_quality_schedule(img, dev, random_de)
     cli_counts = phase_cli(dev)
     fast = phase_fast_schedule(img, dev)
-    del img
     torch.cuda.empty_cache()
     batch = phase_batch(dev)
     torch.cuda.empty_cache()
     probes = phase_probes(dev)
     torch.cuda.empty_cache()
     probe_paths = phase_probe_paths()
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(img, dev)
     # each kernel: at top level, its check and times at the largest bucket of
     # the batch path (quantize-batch --fast over the 64 images) and
     # `launches` from that path; every bucket under "main_path"; the 4K
@@ -1258,11 +1568,21 @@ def main() -> int:
     path_counts = {"quality_schedule": quality, "fast_schedule": fast}
 
     def at_4k(name_, v):
+        if v["variant"].startswith("slabs"):
+            # B2s: the per-rank launches of the 4K mesh path (b), 2 shards
+            return {"launches_from": "mesh_columns_4k_per_rank",
+                    "launches": mesh["columns_4k"]["launches"]["fused_fitness_slabs"]}
         path = runs_at_4k.get(v["variant"])
         return {"launches_from": path, "launches": path_counts[path][name_] if path else 0}
 
+    mesh_paths = {"mesh_columns_4k_per_rank": mesh["columns_4k"]["launches"],
+                  **{f"mesh_{n}_1080p_per_rank": mesh["small"][n]["launches"]
+                     for n in ("rows", "columns", "pop", "data")},
+                  **({"mesh_nccl_columns_4k_per_rank": mesh["nccl"]["launches"]} if "nccl" in mesh else {})}
+
     def by_path(name_):
-        return {"e2e_random_imax30": launches[name_], "quality_schedule": quality[name_],
+        return {**{path: counts[name_] for path, counts in mesh_paths.items()},
+                "e2e_random_imax30": launches[name_], "quality_schedule": quality[name_],
                 "exact_polish_4k": exact[name_], "cli_quantize": cli_counts[name_],
                 "fast_schedule": fast[name_], "quantize_batch_64": batch["launches"][name_],
                 "cli_quantize_batch_4": batch["cli_launches"][name_],
@@ -1273,7 +1593,7 @@ def main() -> int:
         ("assign_pop", "csrc/assign_pop.cu", "ops/pallas_assign.py:371",
          [{"variant": "srgb f32x3 first", **b1}, *b1_fast], [b1_cli]),
         ("fused_fitness", "csrc/fused_fitness.cu", "ops/fused_fitness.py:597",
-         [{"variant": "f32x3", **b2}, *b2_fast], [b2_cli]),
+         [{"variant": "f32x3", **b2}, *b2_fast, *b2s], [b2_cli]),
         ("assign_idx", "csrc/assign_idx.cu", "ops/pallas_assign.py:420", [], b3),
     ):
         common = {"name": name_, "route": "cuda",

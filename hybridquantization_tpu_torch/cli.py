@@ -9,16 +9,21 @@ EzQuantization toggle (:63-85), and the batch command:
   quantize        — find the best K-color palette and write the quantized image
   error           — Delta-E error image between two images (:139-155)
   quantize-batch  — many images, bucketed by resolution, each bucket one
-                    batched anneal on the GPU (parallel.BatchQuantizer)
+                    batched anneal on the GPU (parallel.BatchQuantizer), or
+                    over a mesh of ranks (parallel.ShardedBatchQuantizer):
+                    --mesh-* above 1 starts one process per rank on this
+                    host; --distributed joins a job started on several
 
 The engine runs on the CUDA device and raises when there is none; `main`'s
 `device` keyword is for callers that run it elsewhere (the CPU tests).
+Ranks talk over NCCL on "cuda" (one card each) and gloo on "cpu".
 `.ppm` files need no PIL.
 
 Example:
   python -m hybridquantization_tpu_torch.cli quantize in.ppm out.ppm --colors 8
   python -m hybridquantization_tpu_torch.cli error orig.ppm quant.ppm --out err.ppm
   python -m hybridquantization_tpu_torch.cli quantize-batch a.ppm b.ppm --out-dir out --fast
+  python -m hybridquantization_tpu_torch.cli quantize-batch a.ppm b.ppm --out-dir out --mesh-pixel 2
 """
 
 from __future__ import annotations
@@ -144,18 +149,23 @@ def build_parser() -> argparse.ArgumentParser:
 
     b = sub.add_parser(
         "quantize-batch",
-        help="quantize many images in batches on one GPU (mixed resolutions ok)",
+        help="quantize many images in batches on one GPU or a mesh of them (mixed resolutions ok)",
     )
     b.add_argument("inputs", nargs="+", help="input images")
     b.add_argument("--out-dir", required=True, help="output directory")
     b.add_argument("--colors", "-k", type=int, default=256)
     b.add_argument("--imax", type=int, default=500)
     b.add_argument("--population", type=int, default=4)
-    b.add_argument("--mesh-data", type=int, default=1, help="data-parallel mesh axis (1 on one GPU)")
-    b.add_argument("--mesh-pixel", type=int, default=0, help="pixel mesh axis (0 = rest; 1 on one GPU)")
+    b.add_argument("--mesh-data", type=int, default=1, help="data-parallel mesh axis")
+    b.add_argument(
+        "--mesh-pixel", type=int, default=0,
+        help="pixel mesh axis (0 = the rest of the ranks: 1 without --distributed)",
+    )
     b.add_argument(
         "--mesh-pop", type=int, default=1,
-        help="population (EP) mesh axis (1 on one GPU)",
+        help="population (EP) mesh axis: shard the SWASA candidates over "
+        "this many ranks (must divide --population; ignored with "
+        "--distributed)",
     )
     b.add_argument(
         "--assignment-space", choices=["srgb", "lab"], default="srgb"
@@ -174,9 +184,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="also write per-image Delta-E error images (reference error-"
         "image mode) into DIR as <name>_DE.png",
     )
-    g = b.add_argument_group("multi-host (more than one GPU: not ported yet, ROADMAP A13)")
-    g.add_argument("--distributed", action="store_true", help="multi-host runtime (raises)")
-    g.add_argument("--coordinator", default=None, help="coordinator host:port")
+    g = b.add_argument_group("multi-host (one process per rank; parallel.multihost)")
+    g.add_argument(
+        "--distributed", action="store_true",
+        help="join the job's process group before building the mesh",
+    )
+    g.add_argument("--coordinator", default=None, help="coordinator host:port (or a file:// URL)")
     g.add_argument("--num-processes", type=int, default=None)
     g.add_argument("--process-id", type=int, default=None)
     _add_common(b)
@@ -281,42 +294,63 @@ def cmd_error(args, device="cuda") -> int:
     return 0
 
 
-def _check_one_device(args) -> None:
-    """quantize-batch runs on one GPU: the mesh flags take their one-device
-    values, and anything larger raises, naming the multi-GPU item."""
-    more = [
-        f"--{name} {value}"
-        for name, value, ok in (
-            ("mesh-data", args.mesh_data, (1,)),
-            ("mesh-pixel", args.mesh_pixel, (0, 1)),
-            ("mesh-pop", args.mesh_pop, (1,)),
-        )
-        if value not in ok
-    ]
-    if args.distributed:
-        more.append("--distributed")
-    if more:
-        raise NotImplementedError(
-            f"{', '.join(more)}: more than one GPU is not ported yet (ROADMAP A13, multi-GPU)"
-        )
-
-
 def cmd_quantize_batch(args, device="cuda") -> int:
+    """quantize-batch: one rank (BatchQuantizer), --mesh-* ranks started
+    here (one process each, parallel.multihost.launch), or a --distributed
+    job's rank."""
+    from .parallel.multihost import distributed_mesh, init_distributed, launch
+
+    if args.distributed:
+        if args.mesh_data != 1:
+            print(
+                "--mesh-data is ignored with --distributed: the data axis is "
+                "derived as total ranks / --mesh-pixel",
+                file=sys.stderr,
+            )
+        init_distributed(args.coordinator, args.num_processes, args.process_id, device=device)
+        return _quantize_batch(args, distributed_mesh(args.mesh_pixel or None, device))
+    shape = (args.mesh_data, args.mesh_pixel or 1, args.mesh_pop)
+    ranks = shape[0] * shape[1] * shape[2]
+    if ranks == 1:
+        return _quantize_batch(args, None, device)
+    launch(_quantize_batch_rank, ranks, (args, shape, device), device=device)
+    return 0
+
+
+def _quantize_batch_rank(rank, args, shape, device) -> int:
+    """One rank of a quantize-batch mesh started by `launch`."""
+    from .parallel import make_mesh
+
+    n_data, n_pixel, n_pop = shape
+    return _quantize_batch(args, make_mesh(n_data, n_pixel, n_pop, device))
+
+
+def _quantize_batch(args, mesh, device=None) -> int:
+    """Run the batch on this rank: BatchQuantizer without a mesh, else
+    ShardedBatchQuantizer. Only the mesh's rank 0 prints and writes files."""
     from . import native
     from .batching import run_bucketed
-    from .parallel import BatchQuantizer
+    from .parallel import BatchQuantizer, ShardedBatchQuantizer
 
-    _check_one_device(args)
     # _config_from_args reads the batch flags (colors/population/imax) and
     # carries precision/tie_mode/fast through.
     cfg = _config_from_args(args)
-    engine = BatchQuantizer(cfg, device=device)
-    print(f"mesh 1x1, {len(args.inputs)} images, K={args.colors}")
+    if mesh is None:
+        engine, lead = BatchQuantizer(cfg, device=device), True
+        print(f"mesh 1x1, {len(args.inputs)} images, K={args.colors}")
+    else:
+        engine, lead = ShardedBatchQuantizer(cfg, mesh), mesh.rank == 0
+        if lead:
+            print(
+                f"mesh {engine.n_data}x{engine.n_pixel}, {len(args.inputs)} images, K={args.colors} "
+                f"({engine.n_data}x{engine.n_pop}x{engine.n_pixel} ranks, {mesh.backend} on {mesh.device.type})"
+            )
 
     images = [native.load_image(p) for p in args.inputs]
-    os.makedirs(args.out_dir, exist_ok=True)
-    if args.error_images:
-        os.makedirs(args.error_images, exist_ok=True)
+    if lead:
+        os.makedirs(args.out_dir, exist_ok=True)
+        if args.error_images:
+            os.makedirs(args.error_images, exist_ok=True)
 
     def run_batch(stack):
         out, info = engine.run(stack, polish_iters=args.polish)
@@ -327,8 +361,10 @@ def cmd_quantize_batch(args, device="cuda") -> int:
         return res
 
     t0 = time.time()
-    results = run_bucketed(images, run_batch)
+    results = run_bucketed(images, run_batch, n_data=getattr(engine, "n_data", 1))
     dt = time.time() - t0
+    if not lead:
+        return 0
     total_pix = sum(im.shape[0] * im.shape[1] for im in images)
     for path, res in zip(args.inputs, results):
         out, err, palette = res[:3]

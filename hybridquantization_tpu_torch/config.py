@@ -10,9 +10,13 @@ both mean fp32 here: the assignment scores and the S-CIELAB filter run in
 plain fp32 on the GPU. "bf16" is the TPU's single-pass DEFAULT dot: every
 operand is rounded to bf16 (round to nearest even), each product is exact
 in f32 and the products accumulate in f32. `conv_precision` ("" = follow
-`precision`) sets the S-CIELAB filter's mode on its own. `use_pallas` and
-`overlap_collectives` steer TPU-only code paths and are accepted and
-ignored.
+`precision`) sets the S-CIELAB filter's mode on its own.
+`overlap_collectives` steers the column-sharded engine's evaluation
+(parallel.fast.make_fast_fitness): member-pipelined, each member's
+collective started before the next member's kernels (True), or the
+population in one launch of each kernel and one collective (False); both
+give identical values. `use_pallas` steers a TPU-only code path and is
+accepted and ignored.
 """
 
 from __future__ import annotations
@@ -69,7 +73,7 @@ class QuantizationConfig:
     seed: int = 0
     progress_every: int = 10
     use_pallas: str = "auto"      # TPU only; ignored
-    overlap_collectives: bool = True  # TPU only; ignored
+    overlap_collectives: bool = True  # member-pipelined column-sharded fitness
 
     def __post_init__(self):
         _check_choice("deltaE", self.deltaE, DELTA_E_KINDS)

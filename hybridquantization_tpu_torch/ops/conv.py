@@ -25,8 +25,35 @@ def mirror_index(n: int, half: int, device=None) -> torch.Tensor:
     return torch.where(i >= n, 2 * n - i - 1, i)
 
 
+def conv1d_valid(x: torch.Tensor, kernels: torch.Tensor, axis: int) -> torch.Tensor:
+    """Per-channel 1-D filter along one spatial axis in valid mode.
+
+    Args:
+      x: (..., C, H, W) float32 image whose `axis` holds taps - 1 samples of
+        context beyond the n output samples (half on each side).
+      kernels: (C, taps) filters; channel c uses kernels[c].
+      axis: -2 (or the index of H) or -1 (W).
+
+    Returns:
+      (..., C, H, W) with `axis` n long: out[j] = sum_t k[t] * x[j + t],
+      accumulated in tap order (a cross-correlation, like the reference).
+    """
+    axis = axis % x.dim()
+    if axis not in (x.dim() - 2, x.dim() - 1):
+        raise ValueError("axis must be one of the two trailing spatial axes")
+    C, taps = kernels.shape
+    if x.shape[-3] != C:
+        raise ValueError(f"{x.shape[-3]} channels but {C} kernels")
+    n = x.shape[axis] - taps + 1
+    kv = kernels.to(device=x.device, dtype=x.dtype).view(C, taps, 1, 1)
+    out = kv[:, 0] * x.narrow(axis, 0, n)
+    for t in range(1, taps):
+        out += kv[:, t] * x.narrow(axis, t, n)
+    return out
+
+
 def conv1d_symmetric(x: torch.Tensor, kernels: torch.Tensor, axis: int) -> torch.Tensor:
-    """Per-channel 1-D filter along one spatial axis.
+    """Per-channel 1-D filter along one spatial axis, mirrored at both ends.
 
     Args:
       x: (..., C, H, W) float32 image; any leading batch dims.
@@ -40,14 +67,6 @@ def conv1d_symmetric(x: torch.Tensor, kernels: torch.Tensor, axis: int) -> torch
     axis = axis % x.dim()
     if axis not in (x.dim() - 2, x.dim() - 1):
         raise ValueError("axis must be one of the two trailing spatial axes")
-    C, taps = kernels.shape
-    if x.shape[-3] != C:
-        raise ValueError(f"{x.shape[-3]} channels but {C} kernels")
-    n = x.shape[axis]
-    half = taps // 2
-    xp = x.index_select(axis, mirror_index(n, half, x.device))
-    kv = kernels.to(device=x.device, dtype=x.dtype).view(C, taps, 1, 1)
-    out = kv[:, 0] * xp.narrow(axis, 0, n)
-    for t in range(1, taps):
-        out += kv[:, t] * xp.narrow(axis, t, n)
-    return out
+    half = kernels.shape[1] // 2
+    xp = x.index_select(axis, mirror_index(x.shape[axis], half, x.device))
+    return conv1d_valid(xp, kernels, axis)

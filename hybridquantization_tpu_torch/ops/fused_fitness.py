@@ -20,9 +20,16 @@ of `csrc/fused_fitness.cu` (built at first use, ops/_cuda.py) or raises; on
 a CPU tensor it runs `fused_scielab_err_sums_reference`. The TPU layout
 devices (128-multiple mirror padding, block-banded filter matrices with
 R-folded edges, bf16 hi/lo scratch pairs, VMEM stripe budgets) are not
-needed: the kernel reflects at the true borders by index. The column-slab
-variant (`edges="slabs"`) serves column sharding across chips and waits for
-the multi-GPU engine (ROADMAP A13).
+needed: the kernel reflects at the true borders by index.
+
+B2s, JAX's `edges="slabs"` variant, serves a column shard of a wider image
+(parallel.fast): `left_slab` and `right_slab` are the (…, pop, 3, H, half)
+columns just beyond the shard's two borders, half = taps // 2 (a
+neighbour's edge columns, or the shard's own mirrored at a true image
+border, parallel.fast._column_guards). The kernel reads them by index in its
+horizontal pass; rows are whole, so the vertical pass mirrors as before.
+JAX's 128-column slabs and valid-width mask (`hw`) are TPU layout devices:
+the port's column plan has no padded columns to mask.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from ..config import DELTA_E_KINDS, PRECISIONS
 from ..scielab.transform import SRC7
 from . import _cuda
 from .assign_kernel import bf16_round
-from .conv import conv1d_symmetric
+from .conv import conv1d_symmetric, conv1d_valid
 
 MAX_TAPS = 1025
 
@@ -48,19 +55,28 @@ def fused_scielab_err_sums_reference(
     deltaE: str = "CIE76",
     *,
     precision: str = "f32x3",
+    left_slab: torch.Tensor | None = None,
+    right_slab: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain torch version of the B2 kernel: (pop,) f32 Delta-E sums, or
     (B, pop) for a (B, pop, 3, H, W) bucket (each image run on its own).
 
     The filter is `scielab.transform.scielab_filter_stacked` written out,
-    with bf16's rounding points between its steps."""
+    with bf16's rounding points between its steps. With the column guards
+    (B2s) the horizontal pass runs in valid mode over [left | q | right]."""
     if q.dim() == 5:
+        guards = zip(left_slab, right_slab) if left_slab is not None else [(None, None)] * len(q)
         return torch.stack([
-            fused_scielab_err_sums_reference(qi, ti, kh, kv, whitepoint, deltaE, precision=precision)
-            for qi, ti in zip(q, target)
+            fused_scielab_err_sums_reference(
+                qi, ti, kh, kv, whitepoint, deltaE, precision=precision, left_slab=li, right_slab=ri
+            )
+            for qi, ti, (li, ri) in zip(q, target, guards)
         ])
     rnd = bf16_round if precision == "bf16" else (lambda t: t)
-    t = conv1d_symmetric(rnd(q[:, list(SRC7)]), rnd(kh), axis=-1)  # horizontal pass
+    if left_slab is None:
+        t = conv1d_symmetric(rnd(q[:, list(SRC7)]), rnd(kh), axis=-1)  # horizontal pass
+    else:
+        t = conv1d_valid(rnd(torch.cat([left_slab, q, right_slab], -1)[:, list(SRC7)]), rnd(kh), axis=-1)
     y = conv1d_symmetric(rnd(t), rnd(kv), axis=-2)  # vertical pass
     filtered = y[:, 0:3] + y[:, 3:6]
     filtered[:, 0] += y[:, 6]
@@ -69,7 +85,7 @@ def fused_scielab_err_sums_reference(
     return de.sum(dim=(1, 2))
 
 
-def _check(q, target, kh, kv, deltaE, precision):
+def _check(q, target, kh, kv, deltaE, precision, left_slab, right_slab):
     if q.dim() not in (4, 5) or q.shape[-3] != 3:
         raise ValueError(f"q must be (pop, 3, H, W) or (B, pop, 3, H, W), got {tuple(q.shape)}")
     H, W = q.shape[-2:]
@@ -79,13 +95,22 @@ def _check(q, target, kh, kv, deltaE, precision):
     if kh.shape != kv.shape or kh.dim() != 2 or kh.shape[0] != 7 or kh.shape[1] % 2 != 1:
         raise ValueError(f"filter stacks must be (7, odd taps), got {tuple(kh.shape)}, {tuple(kv.shape)}")
     half = kh.shape[1] // 2
-    if half >= min(H, W):
-        raise ValueError(f"filter half-width {half} must be below H={H} and W={W}")
+    if (left_slab is None) != (right_slab is None):
+        raise ValueError("left_slab and right_slab go together")
+    guards = ()
+    if left_slab is not None:
+        want_g = (*q.shape[:-1], half)
+        for name, g in (("left_slab", left_slab), ("right_slab", right_slab)):
+            if tuple(g.shape) != want_g:
+                raise ValueError(f"{name} must be {want_g}, got {tuple(g.shape)}")
+        guards = (("left_slab", left_slab), ("right_slab", right_slab))
+    if half >= H or (left_slab is None and half >= W):
+        raise ValueError(f"filter half-width {half} must be below H={H} and W={W} (W only without guards)")
     if deltaE not in DELTA_E_KINDS:
         raise ValueError(f"unknown deltaE kind {deltaE!r}; options: {list(DELTA_E_KINDS)}")
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; options: {list(PRECISIONS)}")
-    for name, t in (("q", q), ("target", target), ("kh", kh), ("kv", kv)):
+    for name, t in (("q", q), ("target", target), ("kh", kh), ("kv", kv), *guards):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != q.device:
@@ -101,6 +126,8 @@ def fused_scielab_err_sums(
     deltaE: str = "CIE76",
     *,
     precision: str = "f32x3",
+    left_slab: torch.Tensor | None = None,
+    right_slab: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(pop,) f32 S-CIELAB Delta-E sums over H x W, or (B, pop) for a bucket.
 
@@ -113,11 +140,15 @@ def fused_scielab_err_sums(
       whitepoint: 3 floats.
       deltaE: "CIE76", "CIE94" or "CIEDE2000".
       precision: "highest" | "f32x3" (fp32) | "bf16" (module doc).
+      left_slab, right_slab: B2s's column guards, both or neither (module
+        doc), each shaped like q with taps // 2 columns; without them the
+        horizontal pass mirrors at both column borders.
     """
-    _check(q, target, kh, kv, deltaE, precision)
+    _check(q, target, kh, kv, deltaE, precision, left_slab, right_slab)
     if q.device.type == "cpu":
         return fused_scielab_err_sums_reference(
-            q, target, kh, kv, whitepoint, deltaE, precision=precision
+            q, target, kh, kv, whitepoint, deltaE, precision=precision,
+            left_slab=left_slab, right_slab=right_slab,
         )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -127,6 +158,9 @@ def fused_scielab_err_sums(
     if taps > MAX_TAPS:
         raise ValueError(f"{taps} taps exceed the kernel's {MAX_TAPS}")
     q, target, kh, kv = (t.contiguous() for t in (q, target, kh, kv))
+    slabs = left_slab is not None
+    if slabs:
+        left_slab, right_slab = left_slab.contiguous(), right_slab.contiguous()
     wp = [float(v) for v in whitepoint]
     lib = _cuda.library()
     dev = q.device
@@ -136,9 +170,11 @@ def fused_scielab_err_sums(
     )
     sums = torch.empty((*lead, pop), dtype=torch.float32, device=dev)
     fused_scielab_err_sums.launches += 1
+    fused_scielab_err_sums.slab_launches += slabs
     _cuda.check(
         lib.hq_fused_err_sums(
-            q.data_ptr(), target.data_ptr(), kh.data_ptr(), kv.data_ptr(),
+            q.data_ptr(), left_slab.data_ptr() if slabs else None,
+            right_slab.data_ptr() if slabs else None, target.data_ptr(), kh.data_ptr(), kv.data_ptr(),
             taps, members, pop, H, W, wp[0], wp[1], wp[2], DELTA_E_KINDS.index(deltaE),
             int(precision == "bf16"), t7.data_ptr(), partials.data_ptr(), sums.data_ptr(),
             _cuda.stream(dev),
@@ -150,3 +186,5 @@ def fused_scielab_err_sums(
 
 #: launches of the CUDA kernels through this wrapper (not of the plain version)
 fused_scielab_err_sums.launches = 0
+#: of those, the launches with column guards (B2s)
+fused_scielab_err_sums.slab_launches = 0

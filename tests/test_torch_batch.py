@@ -3,7 +3,9 @@ CPU: a bucket of images anneals in lockstep and each image's result equals
 its single-image run; the batched fitness against the JAX package's; the
 numpy copies `batching.py` and `native.py` against the originals."""
 
+import contextlib
 import dataclasses
+import io
 import re
 
 import jax
@@ -208,10 +210,58 @@ def _u8(img):
     return np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8).astype(np.float32) / 255.0
 
 
+MESH_ARGS = ["-k", "5", "--imax", "6", "--population", "4", "--fast", "--init", "kmeans", "--polish", "2",
+             "--seed", "4"]
+
+
+@pytest.fixture(scope="module")
+def mesh_inputs(tmp_path_factory):
+    """Three inputs (two sizes) and the one-device command's outputs and
+    printed lines, with its directories named <dir>."""
+    d = tmp_path_factory.mktemp("mesh_cli")
+    paths = []
+    for i, (h, w) in enumerate([(36, 44), (30, 40), (36, 44)]):
+        paths.append(str(d / f"im{i}.ppm"))
+        tio.save_image(paths[-1], natural_image(h, w, seed=30 + i))
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        assert main(_mesh_argv(paths, d / "one"), device="cpu") == 0
+    return d, paths, _result_lines(text.getvalue(), d / "one")
+
+
+def _mesh_argv(paths, out):
+    return ["quantize-batch", *paths, *MESH_ARGS, "--out-dir", str(out), "--error-images", f"{out}_e"]
+
+
+def _result_lines(text, out):
+    return [ln.replace(f"{out}_e", "<dir>_e").replace(str(out), "<dir>") for ln in text.splitlines() if "error=" in ln]
+
+
 @pytest.mark.parametrize(
-    "flags",
-    [["--mesh-data", "2"], ["--mesh-pixel", "4"], ["--mesh-pop", "2"], ["--distributed"]],
+    "flags,mesh",
+    [(["--mesh-data", "2"], "mesh 2x1"), (["--mesh-pixel", "2"], "mesh 1x2"),
+     (["--mesh-pop", "2"], "mesh 1x1"), (["--distributed"], "mesh 1x2")],
 )
-def test_quantize_batch_refuses_more_than_one_device(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        main(["quantize-batch", "a.ppm", "--out-dir", str(tmp_path), *flags], device="cpu")
+def test_quantize_batch_mesh_flags_match_one_device(flags, mesh, mesh_inputs, capfd):
+    """Each mesh flag over 2 gloo ranks on the CPU: the files and the lines
+    rank 0 writes equal the one-device command's. --mesh-* ranks are
+    started by the command; --distributed joins two processes started
+    here, each running the command with its --process-id."""
+    import torch.multiprocessing as mp
+
+    from . import _torch_mesh_worker as w
+
+    d, paths, want = mesh_inputs
+    out = d / "_".join(f.strip("-") for f in flags)
+    argv = _mesh_argv(paths, out)
+    if flags == ["--distributed"]:
+        argv += ["--distributed", "--coordinator", f"file://{d}/rendezvous", "--num-processes", "2"]
+        mp.start_processes(w.cli_rank, args=(argv,), nprocs=2, join=True, start_method="spawn")
+    else:
+        assert main(argv + flags, device="cpu") == 0
+    text = capfd.readouterr().out
+    assert f"{mesh}, 3 images, K=5 (" in text and "gloo on cpu" in text
+    assert _result_lines(text, out) == want
+    for i in range(3):
+        for sub in (f"im{i}_q5.png", f"../{out.name}_e/im{i}_DE.png"):
+            np.testing.assert_array_equal(tio.load_image(str(out / sub)), tio.load_image(str(d / "one" / sub)))

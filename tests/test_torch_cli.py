@@ -80,19 +80,35 @@ def test_error_matches_the_jax_cli(ppm, tmp_path, capsys):
 
 
 @pytest.mark.parametrize(
-    "argv,item",
+    "argv,device,message",
     [
-        (["quantize-batch", "a.ppm", "b.ppm", "--mesh-data", "2"], "A13"),
-        (["quantize-batch", "a.ppm", "--fast", "--distributed"], "A13"),
-        (["quantize-batch", "a.ppm", "b.ppm", "--mesh-pixel", "8", "--mesh-pop", "2"], "A13"),
-        (["quantize-batch", "a.ppm", "--precision", "bf16", "--mesh-pop", "4"], "A13"),
+        (["quantize-batch", "a.ppm", "b.ppm", "--mesh-data", "2"], "cuda",
+         "nccl needs one card per rank: 2 ranks on this host, 0 cards"),
+        (["quantize-batch", "a.ppm", "--fast", "--distributed", "--num-processes", "1",
+          "--process-id", "0", "--mesh-pixel", "2"], "cpu",
+         "mesh 1x1x2 needs 2 ranks on a host, have 1"),
+        (["quantize-batch", "a.ppm", "b.ppm", "--mesh-pixel", "8", "--mesh-pop", "2"], "cuda",
+         "nccl needs one card per rank: 16 ranks on this host, 0 cards"),
+        (["quantize-batch", "a.ppm", "--precision", "bf16", "--mesh-pop", "4"], "cuda",
+         "nccl needs one card per rank: 4 ranks on this host, 0 cards"),
     ],
 )
-def test_unported_commands_raise(argv, item, tmp_path):
-    """quantize-batch and the fast modes run (tests/test_torch_batch.py,
-    tests/test_torch_fast.py); only more than one GPU raises."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        main(argv + ["--out-dir", str(tmp_path)], device="cpu")
+def test_unported_commands_raise(argv, device, message, tmp_path):
+    """quantize-batch refuses only what cannot run: a mesh larger than the
+    group (here a one-rank --distributed job), and NCCL ranks beyond the
+    cards of a host (this machine has none). The mesh flags themselves run
+    (tests/test_torch_batch.py)."""
+    import torch.distributed as dist
+
+    if torch.cuda.device_count():
+        pytest.skip("a CUDA device is present")
+    extra = ["--coordinator", f"file://{tmp_path}/rendezvous"] if "--distributed" in argv else []
+    try:
+        with pytest.raises(ValueError, match=re.escape(message)):
+            main(argv + extra + ["--out-dir", str(tmp_path)], device=device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_default_device_is_the_card(ppm, tmp_path):

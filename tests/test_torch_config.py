@@ -141,7 +141,13 @@ def test_import_loads_no_jax():
         "import hybridquantization_tpu_torch.tools.vpu_assign_exp\n"
         "import hybridquantization_tpu_torch.tools.kexp_assign\n"
         "import hybridquantization_tpu_torch.tools.minidot_probe\n"
-        "import chip_smoke, chip_profile\n"
+        "import hybridquantization_tpu_torch.tools.bench_multichip\n"
+        "import hybridquantization_tpu_torch.tools.dryrun_multichip\n"
+        "import hybridquantization_tpu_torch.parallel.mesh, hybridquantization_tpu_torch.parallel.multihost\n"
+        "import hybridquantization_tpu_torch.parallel.population, hybridquantization_tpu_torch.parallel.halo\n"
+        "import hybridquantization_tpu_torch.parallel.sharded, hybridquantization_tpu_torch.parallel.fast\n"
+        "import tests._torch_mesh_worker\n"
+        "import chip_smoke, chip_profile, chip_mesh\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('hybridquantization_tpu.') or m == 'hybridquantization_tpu')\n"
         "assert not bad, bad\n"

@@ -507,3 +507,66 @@ def test_batch_engine_on_the_card_equals_single_image_runs(cuda_device):
         q = HybridQuantizer(dataclasses.replace(cfg, seed=3 + i), device=cuda_device)
         pal, single = q.find_palette(imgs[i])
         assert torch.equal(palettes[i], pal) and float(info["best_errors"][i]) == single["best_error"]
+
+
+def _b2s_shards(q, target, kh, kv, cols, kind, precision):
+    """B2s over the column ranges `cols`, guards from the neighbours or
+    mirrored at the image's borders, as parallel.fast builds them."""
+    half = kh.shape[1] // 2
+    W = q.shape[-1]
+    out = []
+    for lo, hi in cols:
+        left = q[..., lo - half:lo] if lo else q[..., :half].flip(-1)
+        right = q[..., hi:hi + half] if hi < W else q[..., hi - half:hi].flip(-1)
+        args = (q[..., lo:hi].contiguous(), target[..., lo:hi].contiguous(), kh, kv, cs.WHITEPOINT_D65, kind)
+        kw = dict(precision=precision, left_slab=left.contiguous(), right_slab=right.contiguous())
+        out.append((ff.fused_scielab_err_sums(*args, **kw), ff.fused_scielab_err_sums_reference(*args, **kw)))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["CIE76", "CIE94", "CIEDE2000"])
+@pytest.mark.parametrize("precision", ["f32x3", "bf16"])
+def test_b2_slabs_kernel_matches_plain(cuda_device, kind, precision):
+    """B2s on 3 shards of a 211 x 333 frame (one 10 columns wide): each
+    shard against its plain version, their total against mirror B2's."""
+    H, W = 211, 333
+    f = build_filters()
+    kh, kv = stacked_kernels(f, False, cuda_device), stacked_kernels(f, True, cuda_device)
+    img = torch.as_tensor(natural_image(H, W, seed=4), device=cuda_device)
+    target = torch.movedim(cs.srgb_to_lab(img), -1, 0).contiguous()
+    q = torch.movedim(cs.srgb_to_opp(torch.movedim(_rand((3, 3, H, W), 5, cuda_device), 1, -1)), -1, 1).contiguous()
+    before = ff.fused_scielab_err_sums.slab_launches
+    shards = _b2s_shards(q, target, kh, kv, ((0, 150), (150, 160), (160, W)), kind, precision)
+    torch.cuda.synchronize()
+    assert ff.fused_scielab_err_sums.slab_launches == before + 3
+    for got, want in shards:
+        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
+    whole = ff.fused_scielab_err_sums(q, target, kh, kv, cs.WHITEPOINT_D65, kind, precision=precision)
+    total = sum(g.double() for g, _ in shards)
+    torch.testing.assert_close(total, whole.double(), rtol=SUM_RTOL, atol=0)
+    # guards mirrored at both borders read what mirror B2 reads, in its order
+    (mirrored, _), = _b2s_shards(q, target, kh, kv, ((0, W),), kind, precision)
+    assert torch.equal(mirrored, whole)
+
+
+def test_two_gloo_ranks_share_the_card(cuda_device):
+    """Two gloo ranks on one card (the host copies of parallel.mesh): the
+    column-sharded engine's fitness equals the one-device fitness, and both
+    ranks agree bit for bit after a k-means-seeded anneal."""
+    from hybridquantization_tpu_torch.ops import _cuda
+    from hybridquantization_tpu_torch.parallel.multihost import launch
+
+    from . import _torch_mesh_worker as w
+
+    _cuda.library()  # built once, before the ranks start
+    ranks = launch(w.card_ranks, 2, device="cuda", backend="gloo")
+    for k, v in ranks[0].items():
+        assert np.array_equal(np.asarray(v), np.asarray(ranks[1][k])) or k == "device", k
+    cfg = w.engine_config()
+    imgs = torch.as_tensor(w.engine_images(), device=cuda_device)
+    pals = torch.as_tensor(np.stack([w.col_palettes()[:2, :4]] * 2), device=cuda_device)
+    err, use = make_population_fitness(_make_batch_context(imgs, build_filters(), cfg, cuda_device), cfg)(pals)
+    np.testing.assert_allclose(ranks[0]["err"], err.cpu().numpy(), rtol=SUM_RTOL)
+    np.testing.assert_array_equal(ranks[0]["use"], use.cpu().numpy())
+    imax = cfg.swasa.imax
+    assert ranks[0]["launches"] == (2 * (1 + imax), 2 * (1 + imax))  # member-pipelined: one per member
