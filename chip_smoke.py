@@ -10,8 +10,11 @@ give it (B1 and B2: a 3840x2160 frame at K=256 and a 1024x768 frame at
 K=64, population 4; B3 on one palette: both frames in sRGB and in LAB, and
 the 2^15- and 2^18-bin colour histograms of the k-means seeding and the
 histogram polish), and B1's and B2's fast variants (bf16 scores, the
-"average" tie mode, a bf16 filter) at 4K in sRGB and LAB, checks the
-annealing slice and the exact Lloyd polish against the plain path on small
+"average" tie mode, a bf16 filter) at 4K in sRGB and LAB, B2 at 29, 45,
+69 and 93 taps through both of its paths (the fused kernel with any filter,
+and the two-pass one) and at 123 taps (above the fused kernel's limit)
+through the two-pass path on the 1024x768 frame, prints B2's peak device
+memory per launch (4K/pop4, each batch bucket), checks the annealing slice and the exact Lloyd polish against the plain path on small
 inputs, then drives five paths at full width, each with the launch counts
 set to 0 just before it and read just after:
 
@@ -274,8 +277,9 @@ def phase_b2(img, opp, dev) -> dict:
     ctx = _make_context(img, build_filters(), QuantizationConfig(), dev)
     q = opp.reshape(pop, 3, h, w)
     args = (q, ctx["target_planar"], ctx["kh"], ctx["kv"], cs.WHITEPOINT_D65, "CIE76")
-    got = ff.fused_scielab_err_sums(*args)
-    again = ff.fused_scielab_err_sums(*args)
+    host = {"taps_on_host": ctx["taps_on_host"]}
+    got = ff.fused_scielab_err_sums(*args, **host)
+    again = ff.fused_scielab_err_sums(*args, **host)
     want = ff.fused_scielab_err_sums_reference(*args)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
@@ -283,14 +287,108 @@ def phase_b2(img, opp, dev) -> dict:
     rel = ((got.double() - want.double()).abs() / want.double().abs()).max().item()
     if not (torch.isfinite(got).all() and rel <= B2_RTOL):
         fail(f"B2 sums {got.tolist()} vs plain {want.tolist()}: rel {rel}")
-    ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args), 20)
+    ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, **host), 20)
+    # the 2-D tile: 32-row segments, each recomputing its taps - 1 halo rows
+    with _patched(ff, "ROWS_PER_BLOCK", ff.TILE_H):
+        tiled = ff.fused_scielab_err_sums(*args, **host).double()
+        tile_ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, **host), 20)
+    if ((tiled - want.double()).abs() / want.double().abs()).max().item() > B2_RTOL:
+        fail(f"B2 in 32-row tiles: {tiled.tolist()} vs plain {want.tolist()}")
     plain_ms = cuda_ms(lambda: ff.fused_scielab_err_sums_reference(*args), 3, warmup=1)
     max_abs = float((got - want).abs().max())
+    peak = _peak_mib(lambda: ff.fused_scielab_err_sums(*args, **host))
     print(f"B2 fused_fitness {w}x{h} pop={pop} CIE76 taps={ctx['kh'].shape[1]}: mean dE "
           f"{(got / (h * w)).tolist()}; max rel diff {rel:.3g} <= {B2_RTOL}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"kernel {ms:.3f} ms ({ff.ROWS_PER_BLOCK}-row strips; 32-row tiles {tile_ms:.3f} ms), "
+          f"plain {plain_ms:.3f} ms; peak device memory of one launch {peak:.3f} MiB above its inputs")
     return {"shape": f"{w}x{h}", "pop": pop, "max_abs_err": max_abs, "max_rel_err": rel,
-            "ms": ms, "plain_ms": plain_ms, **b2_bound(h, w, ctx["kh"].shape[1], pop)}
+            "ms": ms, "tile_ms": tile_ms, "plain_ms": plain_ms, "peak_mib_per_launch": peak,
+            **b2_bound(h, w, ctx["kh"].shape[1], pop)}
+
+
+def _peak_mib(launch) -> float:
+    """MiB that one call of `launch` allocates at its peak above what was
+    allocated before it (torch.cuda.max_memory_allocated around it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    launch()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 2**20
+
+
+# B2 filters other than the default, (dpi, viewing distance in cm): 29, 45,
+# 69 and 93 taps at 45 cm, 123 taps at 300 dpi and 60 cm
+B2_FILTERS = ((96, 45.0), (150, 45.0), (222, 45.0), (300, 45.0), (300, 60.0))
+
+
+@contextlib.contextmanager
+def _patched(module, name: str, value):
+    """Set module.name to value for the block: to time a choice of B2's plan
+    (fused_fitness.MAX_FUSED_TAPS, ROWS_PER_BLOCK) that it does not make."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def phase_b2_paths(dev) -> list[dict]:
+    """B2 at the filters of B2_FILTERS on a 1024x768 frame at K=64, pop 4
+    (B1's winners as q): each path that can take the filter (the fused
+    kernel up to its shared-memory bound, 97 taps; the two-pass path at any
+    taps) against its plain version (B2_RTOL), twice bit-equal, with its
+    two-pass launch count, and timed; the plan's own path is marked
+    "chosen". The times where both can run are the measurement behind
+    fused_fitness.MAX_FUSED_TAPS."""
+    from hybridquantization_tpu_torch import QuantizationConfig
+    from hybridquantization_tpu_torch import colorspace as cs
+    from hybridquantization_tpu_torch.ops import assign_kernel as ak
+    from hybridquantization_tpu_torch.ops import fused_fitness as ff
+    from hybridquantization_tpu_torch.pipeline import _make_context
+    from hybridquantization_tpu_torch.scielab.filters import build_filters
+    from hybridquantization_tpu_torch.synth import natural_image
+
+    img = natural_image(CLI_H, CLI_W, seed=3)
+    pals = torch.rand((POP, CLI_K, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    opp = ak.assign_opp_usage_pop(torch.as_tensor(img, device=dev).reshape(-1, 3).contiguous(), pals,
+                                  cs.srgb_to_opp(pals).contiguous())[0]
+    rows = []
+    for dpi, dist in B2_FILTERS:
+        ctx = _make_context(img, build_filters(dpi, dist), QuantizationConfig(), dev)
+        taps = ctx["kh"].shape[1]
+        chosen = ff.fused_plan(CLI_H, CLI_W, taps)["path"]
+        args = (opp.reshape(POP, 3, CLI_H, CLI_W), ctx["target_planar"], ctx["kh"], ctx["kv"],
+                cs.WHITEPOINT_D65, "CIE76")
+        want = ff.fused_scielab_err_sums_reference(*args)
+        plain_ms = cuda_ms(lambda: ff.fused_scielab_err_sums_reference(*args), 3, warmup=1)
+        paths = ("fused", "two_pass") if ff.fused_smem_bytes(taps) <= ff.SMEM_LIMIT else ("two_pass",)
+        times = {}
+        for path in paths:
+            limit = taps if path == "fused" else taps - 1
+            with _patched(ff, "MAX_FUSED_TAPS", limit) if path != chosen else contextlib.nullcontext():
+                before = ff.fused_scielab_err_sums.two_pass_launches
+                got = ff.fused_scielab_err_sums(*args)
+                again = ff.fused_scielab_err_sums(*args)
+                two_pass = ff.fused_scielab_err_sums.two_pass_launches - before
+                torch.cuda.synchronize()
+                rel = ((got.double() - want.double()).abs() / want.double().abs()).max().item()
+                if not (torch.equal(got, again) and bool(torch.isfinite(got).all()) and rel <= B2_RTOL):
+                    fail(f"B2 {taps} taps ({path}): {got.tolist()} (again {again.tolist()}) vs plain "
+                         f"{want.tolist()}")
+                if two_pass != (2 if path == "two_pass" else 0):
+                    fail(f"B2 {taps} taps: {two_pass} two-pass launches for the {path} path")
+                ms = times[path] = cuda_ms(lambda: ff.fused_scielab_err_sums(*args), 20)
+                peak = _peak_mib(lambda: ff.fused_scielab_err_sums(*args))
+            rows.append({"variant": f"{path}, {taps} taps", "chosen": path == chosen, "shape": f"{CLI_W}x{CLI_H}",
+                         "pop": POP, "taps": taps, "max_abs_err": float((got - want).abs().max()),
+                         "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms, "peak_mib_per_launch": peak,
+                         "two_pass_launches": two_pass, **b2_bound(CLI_H, CLI_W, taps, POP)})
+        print(f"B2 {CLI_W}x{CLI_H} pop={POP} taps={taps} ({dpi} dpi, {dist:g} cm), the plan takes {chosen}: "
+              + "; ".join(f"{p} kernel {t:.3f} ms" for p, t in times.items())
+              + f"; plain {plain_ms:.3f} ms; each within {B2_RTOL} of plain, bit-equal twice")
+    return rows
 
 
 def _b3_check(feats, pal) -> tuple[int, float, float]:
@@ -394,6 +492,16 @@ def _reset_counts() -> None:
                pk.kloop_assign, pk.split_rowmax, pk.split_assign):
         fn.launches = 0
     ff.fused_scielab_err_sums.slab_launches = 0
+    ff.fused_scielab_err_sums.two_pass_launches = 0
+
+
+def _fused_only(what: str) -> None:
+    """Fail if B2 took its two-pass path since the counts were reset: at
+    the default 21 taps every launch is the fused kernel."""
+    from hybridquantization_tpu_torch.ops import fused_fitness as ff
+
+    if ff.fused_scielab_err_sums.two_pass_launches:
+        fail(f"{what}: B2 took the two-pass path {ff.fused_scielab_err_sums.two_pass_launches} times")
 
 
 def _timed(fn):
@@ -426,6 +534,7 @@ def _run_schedule(img, dev, cfg):
             "assign_idx": SEED_STEPS + 1 + POLISH + 1, **NO_PROBES}
     if launches != want:
         fail(f"the schedule launched {launches}, not {want}")
+    _fused_only("the schedule")
     n_colors = len(torch.unique(out.reshape(-1, 3), dim=0))
     if not (torch.isfinite(mean) and bool(torch.isfinite(out).all())) or n_colors > K:
         fail(f"quality schedule: mean dE {float(mean)}, {n_colors} colours")
@@ -659,10 +768,11 @@ def phase_fast_kernels(img, img_dev, pals, dev) -> tuple[list, list]:
     ctx = _make_context(img, build_filters(), QuantizationConfig(), dev)
     q = ak.assign_opp_usage_pop(img_dev.reshape(-1, 3).contiguous(), pals, opps)[0].reshape(pop, 3, h, w)
     args = (q, ctx["target_planar"], ctx["kh"], ctx["kv"], cs.WHITEPOINT_D65, "CIE76")
-    got = ff.fused_scielab_err_sums(*args, precision="bf16")
-    again = ff.fused_scielab_err_sums(*args, precision="bf16")
+    host = {"taps_on_host": ctx["taps_on_host"]}
+    got = ff.fused_scielab_err_sums(*args, precision="bf16", **host)
+    again = ff.fused_scielab_err_sums(*args, precision="bf16", **host)
     want = ff.fused_scielab_err_sums_reference(*args, precision="bf16")
-    exact = ff.fused_scielab_err_sums(*args)
+    exact = ff.fused_scielab_err_sums(*args, **host)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         fail("B2 bf16 sums differ between two identical launches")
@@ -670,8 +780,8 @@ def phase_fast_kernels(img, img_dev, pals, dev) -> tuple[list, list]:
     if not (torch.isfinite(got).all() and rel <= B2_RTOL):
         fail(f"B2 bf16 sums {got.tolist()} vs plain {want.tolist()}: rel {rel}")
     vs_exact = ((got.double() - exact.double()).abs() / exact.double().abs()).max().item()
-    ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, precision="bf16"), 20)
-    exact_ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args), 20)
+    ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, precision="bf16", **host), 20)
+    exact_ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, **host), 20)
     plain_ms = cuda_ms(lambda: ff.fused_scielab_err_sums_reference(*args, precision="bf16"), 3, warmup=1)
     taps = ctx["kh"].shape[1]
     print(f"B2 fast bf16 {w}x{h} pop={pop}: max rel diff from the plain version {rel:.3g} <= {B2_RTOL}; "
@@ -717,13 +827,15 @@ def _bucket_kernels(ctx, pals, palette, cfg) -> dict:
     conv = cfg.conv_precision or cfg.precision
     args = (opp.reshape(n, pop, 3, h, w), ctx["target_planar"], ctx["kh"], ctx["kv"],
             ctx["whitepoint"], cfg.deltaE)
-    got = ff.fused_scielab_err_sums(*args, precision=conv)
+    host = {"taps_on_host": ctx["taps_on_host"]}
+    got = ff.fused_scielab_err_sums(*args, precision=conv, **host)
     want, t_b2 = _timed(lambda: ff.fused_scielab_err_sums_reference(*args, precision=conv))
     rel = ((got.double() - want.double()).abs() / want.double().abs()).max().item()
     if not (bool(torch.isfinite(got).all()) and rel <= B2_RTOL):
         fail(f"B2 {conv} bucket {bucket} x{n}: rel {rel} from the plain version on the image axis")
-    b2_ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, precision=conv), 5)
+    b2_ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, precision=conv, **host), 5)
     b2_abs = float((got - want).abs().max())
+    b2_peak = _peak_mib(lambda: ff.fused_scielab_err_sums(*args, precision=conv, **host))
     del opp, args
 
     f0 = feats[0].contiguous()
@@ -733,7 +845,7 @@ def _bucket_kernels(ctx, pals, palette, cfg) -> dict:
     print(f"batch bucket {bucket} x{n} against the plain versions: B1 {kw['precision']} "
           f"{kw['tie_mode']} image axis 0 index/colour and 0 count mismatches, kernel {b1_ms:.3f} ms, "
           f"plain {t_b1 * 1e3:.3f} ms; B2 {conv} image axis max rel diff {rel:.3g} <= {B2_RTOL}, kernel "
-          f"{b2_ms:.3f} ms, plain {t_b2 * 1e3:.3f} ms; B3 image 0 K={k}: {n3} indices differ "
+          f"{b2_ms:.3f} ms, plain {t_b2 * 1e3:.3f} ms, peak of one launch {b2_peak:.3f} MiB; B3 image 0 K={k}: {n3} indices differ "
           f"(relative gap {rel3:.3g} <= {NEAR_TIE_REL}), kernel {b3_ms:.3f} ms, plain {b3_plain:.3f} ms")
     row = {"bucket": bucket, "images": n, "bucket_pixels": n * P}
     return {
@@ -741,7 +853,7 @@ def _bucket_kernels(ctx, pals, palette, cfg) -> dict:
                        "max_abs_err": b1_abs, "index_mismatches": n_diff, "count_mismatches": count_diff,
                        "ms": b1_ms, "plain_ms": t_b1 * 1e3, **b1_bound(P, k, pop, bf16=True, images=n)},
         "fused_fitness": {**row, "variant": conv, "pop": pop, "max_abs_err": b2_abs, "max_rel_err": rel,
-                          "ms": b2_ms, "plain_ms": t_b2 * 1e3,
+                          "ms": b2_ms, "plain_ms": t_b2 * 1e3, "peak_mib_per_launch": b2_peak,
                           **b2_bound(h, w, ctx["kh"].shape[1], pop, bf16=True, images=n)},
         "assign_idx": {**row, "case": "image 0 srgb", "P": P, "K": k, "max_abs_err": gap,
                        "max_rel_gap": rel3, "index_mismatches": n3, "ms": b3_ms, "plain_ms": b3_plain,
@@ -796,6 +908,7 @@ def phase_batch(dev) -> dict:
             torch.cuda.synchronize()
             secs = time.perf_counter() - t
             launches = _counts()
+            _fused_only(f"batch bucket {stack.shape[2]}x{stack.shape[1]}")
             peak = torch.cuda.max_memory_allocated()
             n, h, w, _ = stack.shape
             want = {"assign_pop": 1 + QS_IMAX, "fused_fitness": 1 + QS_IMAX,
@@ -1274,9 +1387,10 @@ def phase_mesh_b2s(img, opp, dev) -> list[dict]:
     (h, w, _), pop = img.shape, opp.shape[0]
     ctx = _make_context(img, build_filters(), QuantizationConfig(), dev)
     kh, kv, target = ctx["kh"], ctx["kv"], ctx["target_planar"]
+    host = {"taps_on_host": ctx["taps_on_host"]}
     taps = kh.shape[1]
     q = opp.reshape(pop, 3, h, w)
-    whole = ff.fused_scielab_err_sums(q, target, kh, kv, cs.WHITEPOINT_D65, "CIE76").double()
+    whole = ff.fused_scielab_err_sums(q, target, kh, kv, cs.WHITEPOINT_D65, "CIE76", **host).double()
     rows = []
     for n in MESH_SHARDS:
         cols, ok = plan_fast(h, w, taps // 2, n)
@@ -1285,8 +1399,8 @@ def phase_mesh_b2s(img, opp, dev) -> list[dict]:
         shards, total = [], torch.zeros_like(whole)
         for lo, hi in cols:
             args, guards = _b2s_args(q, target, kh, kv, lo, hi)
-            got = ff.fused_scielab_err_sums(*args, **guards)
-            again = ff.fused_scielab_err_sums(*args, **guards)
+            got = ff.fused_scielab_err_sums(*args, **guards, **host)
+            again = ff.fused_scielab_err_sums(*args, **guards, **host)
             want = ff.fused_scielab_err_sums_reference(*args, **guards)
             torch.cuda.synchronize()
             rel = ((got.double() - want.double()).abs() / want.double().abs()).max().item()
@@ -1294,8 +1408,8 @@ def phase_mesh_b2s(img, opp, dev) -> list[dict]:
                 fail(f"B2s shard [{lo}, {hi}) of {n}: {got.tolist()} (again {again.tolist()}) vs plain "
                      f"{want.tolist()}: rel {rel}")
             total += got.double()
-            ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, **guards), 20)
-            mirror_ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args), 20)
+            ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, **guards, **host), 20)
+            mirror_ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, **host), 20)
             plain_ms = cuda_ms(lambda: ff.fused_scielab_err_sums_reference(*args, **guards), 3, warmup=1)
             shards.append({"cols": [lo, hi], "ms": ms, "mirror_ms": mirror_ms, "plain_ms": plain_ms,
                            "max_abs_err": float((got - want).abs().max()), "max_rel_err": rel,
@@ -1535,6 +1649,7 @@ def main() -> int:
     b1_cli, cli_opp = phase_b1(cli_dev, cli_pals)
     b2 = phase_b2(img, opp, dev)
     b2_cli = phase_b2(cli_img, cli_opp, dev)
+    b2_paths = phase_b2_paths(dev)
     b2s = phase_mesh_b2s(img, opp, dev)
     # the cli frame is under 2^20 pixels: its polish is exact, only its seeding bins
     b3 = phase_b3([(f"{W}x{H}", img_dev, pals[0].contiguous(), (5, 6)),
@@ -1593,7 +1708,7 @@ def main() -> int:
         ("assign_pop", "csrc/assign_pop.cu", "ops/pallas_assign.py:371",
          [{"variant": "srgb f32x3 first", **b1}, *b1_fast], [b1_cli]),
         ("fused_fitness", "csrc/fused_fitness.cu", "ops/fused_fitness.py:597",
-         [{"variant": "f32x3", **b2}, *b2_fast, *b2s], [b2_cli]),
+         [{"variant": "f32x3", **b2}, *b2_fast, *b2s, *b2_paths], [b2_cli]),
         ("assign_idx", "csrc/assign_idx.cu", "ops/pallas_assign.py:420", [], b3),
     ):
         common = {"name": name_, "route": "cuda",

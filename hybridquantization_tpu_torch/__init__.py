@@ -10,6 +10,7 @@ The JAX package `hybridquantization_tpu` is the reference it is tested
 against; this package never imports jax.
 """
 
+from . import cpu_math  # first: its import warms torch's CPU sqrt/log up (cpu_math doc)
 from . import colorspace
 from .config import QuantizationConfig, ScielabConfig, SWASAConfig
 from .pipeline import HybridQuantizer

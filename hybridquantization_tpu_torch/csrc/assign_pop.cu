@@ -22,23 +22,40 @@
 // bf16 score bit for bit. The image axis is the grid's y dimension: one
 // launch serves a bucket of same-size images, each with its own palettes.
 //
-// What bounds it on the H100: fp32 instruction rate. The scan costs 3 FMAs, a compare
-// and a select per (member, pixel, entry): 4 x 8.3 M x 256 entries at
-// 4K/K256/pop4, against 48 bytes of pixel traffic per pixel. The design:
-//  - one thread per pixel, features held in registers and read once for the
-//    whole population (the member loop runs inside the block);
+// What bounds it on the H100: fp32 instruction issue. The scan's work is 3
+// FMAs per (member, pixel, entry) (4 x 8.3 M x 256 entries at 4K/K256/pop4,
+// 0.76 ms at the fp32 FMA peak) against 48 bytes of pixel traffic per
+// pixel. The earlier design issued about 7 instructions per such triple: a
+// shared load of the entry per pixel, 3 FMAs, a compare and two selects
+// of the running best and its index. This design issues about 4.3 (on an
+// H100 80GB HBM3 at 700 W, first/fp32 at 4K/K256/pop4: 1.737 ms against
+// the earlier 2.479, chip_smoke.py; of 2 or 4 pixels a thread and chunks of
+// 8 or 16, timed against each other while the kernel was built, 4 and 16
+// were the fastest):
+//  - kPx pixels per thread (pixel r of a thread at r x 256 + its lane, so
+//    loads and stores stay coalesced): one shared float4 load of an entry,
+//    a broadcast across the warp, feeds all of them;
+//  - a max-then-rescan scan: over each chunk of kChunk entries a pixel keeps
+//    only fmaxf of its scores (fmaxf drops NaN, so a NaN never wins; an
+//    all-NaN pixel keeps index -1); after the chunk one compare and two
+//    selects record a chunk maximum strictly above the running best and
+//    that chunk's number (in average mode: whether it equals the best, and
+//    how many chunks reached it). After the scan one rescan of the first
+//    winning chunk, by the same FMA chain in the same order, takes its first
+//    entry equal to the best, so winners are exactly those of a strict `>`
+//    scan in index order: first index within the chunk, and across chunks
+//    because the chunk is the first to reach the best. In average mode the
+//    rescan of the winning chunk counts and sums its hits in index order; a
+//    pixel whose best is reached in two or more chunks (duplicate entries
+//    in different chunks) rescans from the first of them to the end;
 //  - a first small kernel packs each palette entry once as a (c0, c1, c2,
 //    bias) float4, the counterpart of JAX's pack_palette; the main kernel
-//    stages those in shared memory in tiles of kTileK entries, read by every
-//    thread of a warp at the same address (a broadcast), and loops over the
-//    tiles, so K has no ceiling;
-//  - the scan is a strict `>` in index order, which keeps first-index ties
-//    exact (Mosaic's argmax got them wrong on hardware) and lets no NaN win;
-//  - average mode scans once too, counting the entries that equal the
-//    running maximum (registers only). A pixel with one hit takes its
-//    winner's colour as in first mode; only a pixel with two or more scans
-//    its tiles again past the first, summing the hits' colours and counting
-//    them;
+//    stages those in shared memory in tiles of kTileK entries, each chunk
+//    padded to kChunk + 1 float4s (so the rescans of different chunks by the
+//    threads of a warp spread over the banks) and the last chunk filled with
+//    entries that score -inf, and loops over the tiles, so K has no ceiling
+//    (a rescan of a chunk in an earlier tile reads the packed entries from
+//    device memory);
 //  - counts go to a per-block shared-memory int32 histogram, then to the
 //    global counts with one int32 atomicAdd per non-empty bin. Integer
 //    atomics are exact and their order does not matter. K above kHistK adds
@@ -46,8 +63,8 @@
 //  - shared memory is sized for K (dynamic), so a small palette leaves room
 //    for the most blocks per SM.
 // The bf16 mode runs on the same fp32 pipes (its products are exact there),
-// so it costs what fp32 costs. Several pixels per thread and a tensor-core
-// formulation of the score tile are left for later work.
+// so it costs what fp32 costs. A tensor-core score tile does not beat three
+// FMAs and a max here (PERF.md, the assignment probes T1-T8).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,7 +74,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileK = 1024;  // most palette entries per shared tile (16 KB)
+constexpr int kPx = 4;       // pixels per thread
+constexpr int kChunk = 16;   // entries per max-then-rescan chunk
+constexpr int kTileK = 1024;  // most palette entries per shared tile (17 KB padded)
 constexpr int kHistK = 4096;  // K up to this uses the shared histogram (up to 16 KB)
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -85,10 +104,15 @@ __device__ __forceinline__ float score(float f0, float f1, float f2, float4 t) {
   return fmaf(f2, t.z, fmaf(f1, t.y, fmaf(f0, t.x, t.w)));
 }
 
-// Stage packed entries [k0, k0 + n) of one member into shared memory.
-// Callers synchronise around it.
+// Stage packed entries [k0, k0 + n) of one member into the padded tile,
+// the last chunk filled with entries scoring -inf. Callers synchronise
+// around it.
 __device__ __forceinline__ void stage(const float4* c4, int k0, int n, float4* tile) {
-  for (int j = threadIdx.x; j < n; j += kThreads) tile[j] = c4[k0 + j];
+  const int padded = (n + kChunk - 1) / kChunk * kChunk;
+  for (int j = threadIdx.x; j < padded; j += kThreads) {
+    tile[j / kChunk * (kChunk + 1) + j % kChunk] =
+        j < n ? c4[k0 + j] : make_float4(0.0f, 0.0f, 0.0f, -INFINITY);
+  }
 }
 
 template <bool kAverage>
@@ -100,7 +124,8 @@ assign_pop_kernel(const float* __restrict__ feats, const float4* __restrict__ c4
   // dynamic shared memory, sized for this K by hq_assign_pop: tile, hist
   extern __shared__ float4 smem[];
   float4* tile = smem;
-  int* hist = reinterpret_cast<int*>(smem + min(K, kTileK));
+  const int tile_chunks = (min(K, kTileK) + kChunk - 1) / kChunk;
+  int* hist = reinterpret_cast<int*>(smem + tile_chunks * (kChunk + 1));
 
   // image b of the bucket: its pixels, palettes and outputs
   const size_t b = blockIdx.y;
@@ -111,20 +136,21 @@ assign_pop_kernel(const float* __restrict__ feats, const float4* __restrict__ c4
   counts += b * pop * K;
   if (idx_out != nullptr) idx_out += b * pop * P;
 
-  const size_t pix = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  const bool active = pix < (size_t)P;
-  float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
-  if (active) {
-    f0 = feats[pix * 3 + 0];
-    f1 = feats[pix * 3 + 1];
-    f2 = feats[pix * 3 + 2];
-    if (bf16) {
-      f0 = bf16_round(f0);
-      f1 = bf16_round(f1);
-      f2 = bf16_round(f2);
+  size_t pix[kPx];
+  bool active[kPx];
+  float f[kPx][3];
+#pragma unroll
+  for (int r = 0; r < kPx; ++r) {
+    pix[r] = (size_t)blockIdx.x * (kThreads * kPx) + r * kThreads + threadIdx.x;
+    active[r] = pix[r] < (size_t)P;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float v = active[r] ? feats[pix[r] * 3 + d] : 0.0f;
+      f[r][d] = bf16 ? bf16_round(v) : v;
     }
   }
   const bool shared_hist = K <= kHistK;
+  const bool one_tile = K <= kTileK;  // the tile still holds every chunk after the scan
 
   for (int p = 0; p < pop; ++p) {
     const float4* mc4 = c4 + (size_t)p * K;
@@ -137,93 +163,98 @@ assign_pop_kernel(const float* __restrict__ feats, const float4* __restrict__ c4
         atomicAdd(&member_counts[k], 1);
       }
     };
+    // entry k of this member: from the tile while it holds it, else from
+    // device memory
+    auto entry = [&](int k) {
+      return one_tile ? tile[k / kChunk * (kChunk + 1) + k % kChunk] : mc4[k];
+    };
     if (shared_hist) {
       for (int k = threadIdx.x; k < K; k += kThreads) hist[k] = 0;
     }
-    float best = -INFINITY;
-    int bi = -1;
-    int hits = 0;  // average mode: entries equal to the running maximum
+    float best[kPx];
+    int win[kPx];   // the first chunk whose maximum is the best, -1 for none
+    int wins[kPx];  // average mode: chunks whose maximum equals the best
+#pragma unroll
+    for (int r = 0; r < kPx; ++r) {
+      best[r] = -INFINITY;
+      win[r] = -1;
+      wins[r] = 0;
+    }
     for (int k0 = 0; k0 < K; k0 += kTileK) {
       const int n = min(kTileK, K - k0);
       __syncthreads();  // the previous tile is consumed; hist is zeroed
       stage(mc4, k0, n, tile);
       __syncthreads();
-#pragma unroll 8
-      for (int j = 0; j < n; ++j) {
-        const float s = score(f0, f1, f2, tile[j]);
-        if (!kAverage) {
-          if (s > best) {
-            best = s;
-            bi = k0 + j;
-          }
-        } else if (s >= best) {  // rare once the maximum has settled
-          if (s > best) {
-            hits = 1;
-            bi = k0 + j;
-            best = s;
-          } else {
-            // an empty asm keeps this a branch: if-converted into selects, the
-            // update costs every entry three more instructions
-            asm volatile("" ::: "memory");
-            hits += 1;
+      const int chunks = (n + kChunk - 1) / kChunk;
+      for (int c = 0; c < chunks; ++c) {
+        const float4* e = tile + c * (kChunk + 1);
+        float m[kPx];
+#pragma unroll
+        for (int r = 0; r < kPx; ++r) m[r] = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          const float4 t = e[j];
+#pragma unroll
+          for (int r = 0; r < kPx; ++r) m[r] = fmaxf(m[r], score(f[r][0], f[r][1], f[r][2], t));
+        }
+        const int cg = k0 / kChunk + c;
+#pragma unroll
+        for (int r = 0; r < kPx; ++r) {
+          if (kAverage && m[r] == best[r]) wins[r] += 1;
+          if (m[r] > best[r]) {
+            best[r] = m[r];
+            win[r] = cg;
+            wins[r] = 1;
           }
         }
       }
     }
 
-    const bool won = active && bi >= 0;
-    float o0 = 0.0f, o1 = 0.0f, o2 = 0.0f;
-    if (won) {
-      count(bi);
-      const float* o = oc + (size_t)bi * 3;
-      o0 = o[0];
-      o1 = o[1];
-      o2 = o[2];
-    }
-    if (kAverage) {
-      // two or more hits: their colours summed in index order from the
-      // first, and the later hits counted, from a second scan past bi
-      const bool many = won && hits > 1;
-      auto add_hit = [&](int k) {
-        const float* o = oc + (size_t)k * 3;
-        o0 += o[0];
-        o1 += o[1];
-        o2 += o[2];
-        count(k);
-      };
-      if (K <= kTileK) {
-        if (many) {
-          for (int j = bi + 1; j < K; ++j) {
-            if (score(f0, f1, f2, tile[j]) == best) add_hit(j);
-          }
-        }
-      } else if (__syncthreads_or(many)) {
-        for (int k0 = 0; k0 < K; k0 += kTileK) {
-          const int n = min(kTileK, K - k0);
-          __syncthreads();
-          stage(mc4, k0, n, tile);
-          __syncthreads();
-          if (many) {
-            for (int j = max(bi + 1 - k0, 0); j < n; ++j) {
-              if (score(f0, f1, f2, tile[j]) == best) add_hit(k0 + j);
-            }
-          }
-        }
-      }
+#pragma unroll
+    for (int r = 0; r < kPx; ++r) {
+      // the winner: the first entry of the first winning chunk that reaches
+      // the best (a real entry: padding scores -inf, below any best that won)
+      const bool won = active[r] && win[r] >= 0;
+      int bi = -1;
+      float o0 = 0.0f, o1 = 0.0f, o2 = 0.0f;
+      int hits = 0;
       if (won) {
-        const float inv = 1.0f / fmaxf((float)hits, 1.0f);
-        o0 *= inv;
-        o1 *= inv;
-        o2 *= inv;
+        const int lo = win[r] * kChunk;
+        // first mode, or average with one winning chunk: that chunk; two or
+        // more: from it to the end
+        const int hi = kAverage && wins[r] > 1 ? K : min(lo + kChunk, K);
+        for (int k = lo; k < hi; ++k) {
+          if (score(f[r][0], f[r][1], f[r][2], entry(k)) == best[r]) {
+            if (bi < 0) bi = k;
+            if (!kAverage) break;
+            const float* o = oc + (size_t)k * 3;
+            o0 += o[0];
+            o1 += o[1];
+            o2 += o[2];
+            hits += 1;
+            count(k);
+          }
+        }
+        if (!kAverage) {
+          const float* o = oc + (size_t)bi * 3;
+          o0 = o[0];
+          o1 = o[1];
+          o2 = o[2];
+          count(bi);
+        } else {
+          const float inv = 1.0f / fmaxf((float)hits, 1.0f);
+          o0 *= inv;
+          o1 *= inv;
+          o2 *= inv;
+        }
       }
-    }
-
-    if (active) {
-      float* out = opp_out + (size_t)p * 3 * P;
-      out[pix] = o0;
-      out[(size_t)P + pix] = o1;
-      out[2 * (size_t)P + pix] = o2;
-      if (idx_out != nullptr) idx_out[(size_t)p * P + pix] = bi;
+      if (active[r]) {
+        float* out = opp_out + (size_t)p * 3 * P;
+        out[pix[r]] = o0;
+        out[(size_t)P + pix[r]] = o1;
+        out[2 * (size_t)P + pix[r]] = o2;
+        if (idx_out != nullptr) idx_out[(size_t)p * P + pix[r]] = bi;
+      }
     }
 
     if (shared_hist) {
@@ -235,6 +266,25 @@ assign_pop_kernel(const float* __restrict__ feats, const float4* __restrict__ c4
       __syncthreads();  // flushed before the next member zeroes hist
     }
   }
+}
+
+int launch_scan(bool average, int B, int P, int K, int pop, bool bf16, const float* feats,
+                const float4* c4, const float* opp_pal, float* opp_out, int* counts,
+                int* idx_out, cudaStream_t s) {
+  const dim3 grid((unsigned)(((size_t)P + kThreads * kPx - 1) / (kThreads * kPx)), (unsigned)B);
+  // only what this K needs (about 5 KB at K=256), so a small palette does
+  // not hold an SM to fewer blocks
+  const int chunks = (min(K, kTileK) + kChunk - 1) / kChunk;
+  const size_t smem = (size_t)chunks * (kChunk + 1) * sizeof(float4) +
+                      (K <= kHistK ? (size_t)K * sizeof(int) : 0);
+  if (average) {
+    assign_pop_kernel<true><<<grid, kThreads, smem, s>>>(
+        feats, c4, opp_pal, P, K, pop, bf16, opp_out, counts, idx_out);
+  } else {
+    assign_pop_kernel<false><<<grid, kThreads, smem, s>>>(
+        feats, c4, opp_pal, P, K, pop, bf16, opp_out, counts, idx_out);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -257,17 +307,6 @@ extern "C" int hq_assign_pop(const float* feats, const float* pal, const float* 
                                                                      c4);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const dim3 grid((unsigned)(((size_t)P + kThreads - 1) / kThreads), (unsigned)B);
-  // only what this K needs (5 KB at K=256), so a small palette does not hold
-  // an SM to fewer blocks
-  const size_t smem = (size_t)min(K, kTileK) * sizeof(float4) +
-                      (K <= kHistK ? (size_t)K * sizeof(int) : 0);
-  if (average) {
-    assign_pop_kernel<true><<<grid, kThreads, smem, s>>>(feats, c4, opp_pal, P, K, pop,
-                                                         bf16 != 0, opp_out, counts, idx_out);
-  } else {
-    assign_pop_kernel<false><<<grid, kThreads, smem, s>>>(feats, c4, opp_pal, P, K, pop,
-                                                          bf16 != 0, opp_out, counts, idx_out);
-  }
-  return (int)cudaGetLastError();
+  return launch_scan(average != 0, B, P, K, pop, bf16 != 0, feats, c4, opp_pal, opp_out, counts,
+                     idx_out, s);
 }

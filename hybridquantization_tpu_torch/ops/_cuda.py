@@ -39,13 +39,13 @@ _SIGNATURES = {
     "hq_assign_pop": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # feats, pal, P, K, idx_out, stream
     "hq_assign_idx": [_P, _P, _I, _I, _P, _P],
-    # q, left, right, target, kh, kv, taps, members, pop, H, W, wp0, wp1, wp2,
-    # kind, bf16, t7, partials, sums, stream
+    # q, left, right, target, kh, kv, host_taps, taps, members, pop, H, W, wp0,
+    # wp1, wp2, kind, bf16, rows_per_block, smem_bytes, n_partials, t7, partials,
+    # sums, stream
     "hq_fused_err_sums": [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _P, _P,
+        _P, _P,
     ],
-    # H, W -> number of per-member partial sums hq_fused_err_sums writes
-    "hq_fused_num_partials": [_I, _I],
     # x, c4, o4, P, K, pop, slots, fused, unroll, threads, opp, counts, stream
     "hq_probe_kloop": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # x4, c, P, Kc, pop, run, out_bf16, threads, out, stream

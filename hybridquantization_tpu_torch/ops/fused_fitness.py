@@ -22,6 +22,12 @@ devices (128-multiple mirror padding, block-banded filter matrices with
 R-folded edges, bf16 hi/lo scratch pairs, VMEM stripe budgets) are not
 needed: the kernel reflects at the true borders by index.
 
+`fused_plan` picks the kernel path: up to MAX_FUSED_TAPS taps (the default
+filter has 21) one fused kernel keeps the 7-channel intermediate in shared
+memory; above that, where its ring of intermediate rows no longer fits an
+SM's 227 KB, two kernels pass it through a (members, 7, H, W) device
+scratch. Either way a fixed-order reduce kernel follows.
+
 B2s, JAX's `edges="slabs"` variant, serves a column shard of a wider image
 (parallel.fast): `left_slab` and `right_slab` are the (…, pop, 3, H, half)
 columns just beyond the shard's two borders, half = taps // 2 (a
@@ -34,6 +40,8 @@ the port's column plan has no padded columns to mask.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import colorspace as cs
@@ -44,6 +52,61 @@ from .assign_kernel import bf16_round
 from .conv import conv1d_symmetric, conv1d_valid
 
 MAX_TAPS = 1025
+# The fused kernel's layout (csrc/fused_fitness.cu, whose kTileW, kTileH,
+# kDefaultTaps, kMaxSmem, stage_width and ring_groups these mirror): 32-column
+# strips, rows staged, filtered and output 32 at a time, a segment of up to
+# ROWS_PER_BLOCK rows per block (faster than 32-row tiles on the H100,
+# PERF.md); at DEFAULT_TAPS the coefficients travel as a kernel parameter
+# (FMA operands), at other taps through shared memory.
+TILE_W = TILE_H = 32
+ROWS_PER_BLOCK = 512
+DEFAULT_TAPS = 21  # scielab.filters.build_filters at 72 dpi, 45 cm
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
+# the largest filter the fused kernel takes: its layout fits SMEM_LIMIT up
+# to 97 taps, and up to there it beats the two-pass path, which takes the
+# filters above (chip_smoke.py phase_b2_paths, PERF.md)
+MAX_FUSED_TAPS = 97
+
+
+def fused_smem_bytes(taps: int) -> int:
+    """Shared memory of the fused kernel: two staging buffers of 32 rows x 3
+    channels x (32 + 2 half, to a multiple of 4) columns, a ring of
+    1 + ceil((taps - 1) / 32) groups of 32 rows x 7 channels x 32 columns,
+    and, except at DEFAULT_TAPS, the two coefficient stacks, (taps, 8) each."""
+    half = taps // 2
+    stage_w = -(-(TILE_W + 2 * half) // 4) * 4
+    ring_groups = 1 + (TILE_H + 2 * half - 1) // TILE_H
+    coeffs = 0 if taps == DEFAULT_TAPS else 16 * taps
+    return 4 * (2 * 3 * TILE_H * stage_w + ring_groups * TILE_H * 7 * TILE_W + coeffs)
+
+
+def fused_plan(H: int, W: int, taps: int) -> dict:
+    """The B2 kernel path for an H x W image and `taps` taps: "fused" (one
+    kernel, `rows_per_block` rows of a 32-column strip per block, at most the
+    image's height rounded up to 32) or, above MAX_FUSED_TAPS, "two_pass"
+    (an (members, 7, H, W) scratch, 256 columns of a row per block);
+    `smem_bytes`: a block's dynamic shared memory; `partials`: the blocks,
+    and the partial sums, of each member. The kernel library launches what
+    the plan says."""
+    if taps <= MAX_FUSED_TAPS:
+        rows = min(ROWS_PER_BLOCK, -(-H // TILE_H) * TILE_H)
+        return {"path": "fused", "rows_per_block": rows, "smem_bytes": fused_smem_bytes(taps),
+                "partials": -(-W // TILE_W) * -(-H // rows)}
+    return {"path": "two_pass", "rows_per_block": 0, "smem_bytes": 7 * taps * 4,
+            "partials": -(-W // 256) * H}
+
+
+def kernel_taps(kh: torch.Tensor, kv: torch.Tensor):
+    """The default filter's coefficients as the fused kernel takes them: kh
+    then kv (2 x 7 x 21 floats) on the host, as {False: fp32, True: rounded
+    to bf16} ctypes arrays; None for another number of taps. Made once where
+    the stacks are made (pipeline._make_context), so that a launch copies
+    nothing from the device."""
+    if kh.shape[-1] != DEFAULT_TAPS:
+        return None
+    stacks = torch.stack([kh, kv]).detach().to("cpu", torch.float32)
+    floats = {False: stacks, True: bf16_round(stacks)}
+    return {bf16: (ctypes.c_float * t.numel())(*t.flatten().tolist()) for bf16, t in floats.items()}
 
 
 def fused_scielab_err_sums_reference(
@@ -128,6 +191,7 @@ def fused_scielab_err_sums(
     precision: str = "f32x3",
     left_slab: torch.Tensor | None = None,
     right_slab: torch.Tensor | None = None,
+    taps_on_host=None,
 ) -> torch.Tensor:
     """(pop,) f32 S-CIELAB Delta-E sums over H x W, or (B, pop) for a bucket.
 
@@ -143,6 +207,8 @@ def fused_scielab_err_sums(
       left_slab, right_slab: B2s's column guards, both or neither (module
         doc), each shaped like q with taps // 2 columns; without them the
         horizontal pass mirrors at both column borders.
+      taps_on_host: `kernel_taps(kh, kv)`, made once for the stacks; without
+        it a CUDA launch at the default 21 taps copies them from the device.
     """
     _check(q, target, kh, kv, deltaE, precision, left_slab, right_slab)
     if q.device.type == "cpu":
@@ -162,22 +228,29 @@ def fused_scielab_err_sums(
     if slabs:
         left_slab, right_slab = left_slab.contiguous(), right_slab.contiguous()
     wp = [float(v) for v in whitepoint]
+    bf16 = precision == "bf16"
+    plan = fused_plan(H, W, taps)
+    fused = plan["path"] == "fused"
+    param = None
+    if fused and taps == DEFAULT_TAPS:
+        param = (taps_on_host or kernel_taps(kh, kv))[bf16]
     lib = _cuda.library()
     dev = q.device
-    t7 = torch.empty((members, 7, H, W), dtype=torch.float32, device=dev)
-    partials = torch.empty(
-        (members, lib.hq_fused_num_partials(H, W)), dtype=torch.float32, device=dev
-    )
+    # the two-pass path's intermediate; the fused kernel keeps it on the SM
+    t7 = None if fused else torch.empty((members, 7, H, W), dtype=torch.float32, device=dev)
+    partials = torch.empty((members, plan["partials"]), dtype=torch.float32, device=dev)
     sums = torch.empty((*lead, pop), dtype=torch.float32, device=dev)
     fused_scielab_err_sums.launches += 1
     fused_scielab_err_sums.slab_launches += slabs
+    fused_scielab_err_sums.two_pass_launches += not fused
     _cuda.check(
         lib.hq_fused_err_sums(
             q.data_ptr(), left_slab.data_ptr() if slabs else None,
             right_slab.data_ptr() if slabs else None, target.data_ptr(), kh.data_ptr(), kv.data_ptr(),
-            taps, members, pop, H, W, wp[0], wp[1], wp[2], DELTA_E_KINDS.index(deltaE),
-            int(precision == "bf16"), t7.data_ptr(), partials.data_ptr(), sums.data_ptr(),
-            _cuda.stream(dev),
+            ctypes.addressof(param) if param is not None else None, taps, members, pop, H, W,
+            wp[0], wp[1], wp[2], DELTA_E_KINDS.index(deltaE), int(bf16), plan["rows_per_block"],
+            plan["smem_bytes"], plan["partials"], t7.data_ptr() if t7 is not None else None,
+            partials.data_ptr(), sums.data_ptr(), _cuda.stream(dev),
         ),
         "hq_fused_err_sums",
     )
@@ -188,3 +261,5 @@ def fused_scielab_err_sums(
 fused_scielab_err_sums.launches = 0
 #: of those, the launches with column guards (B2s)
 fused_scielab_err_sums.slab_launches = 0
+#: of those, the launches of the two-pass path (taps above MAX_FUSED_TAPS)
+fused_scielab_err_sums.two_pass_launches = 0

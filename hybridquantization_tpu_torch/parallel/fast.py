@@ -85,7 +85,8 @@ def make_fast_fitness(ctx: dict, cfg: QuantizationConfig, mesh: Mesh, *, H: int,
     K, 3) for one image) -> (([b,] pop) errors, ([b,] pop, K) usage).
 
     ctx: the shard's context (`shard_context`): "assign_pixels" ([b,] H *
-    Ws, 3), "target_planar" ([b,] 3, H, Ws), "kh", "kv", "whitepoint".
+    Ws, 3), "target_planar" ([b,] 3, H, Ws), "kh", "kv", "taps_on_host",
+    "whitepoint".
 
     With cfg.overlap_collectives (the default) the population is evaluated
     member-pipelined: each member runs B1, its guard exchange and B2s, and
@@ -116,7 +117,7 @@ def make_fast_fitness(ctx: dict, cfg: QuantizationConfig, mesh: Mesh, *, H: int,
         left, right = _column_guards(q, half, mesh)
         sums = fused_scielab_err_sums(
             q, ctx["target_planar"], ctx["kh"], ctx["kv"], wp, cfg.deltaE, precision=conv,
-            left_slab=left, right_slab=right,
+            left_slab=left, right_slab=right, taps_on_host=ctx["taps_on_host"],
         )
         return pack(sums, counts)
 

@@ -33,7 +33,7 @@ from .checkpoint import save_state
 from .config import QuantizationConfig
 from .ops import assign as assign_ops
 from .ops.assign_kernel import assign_opp_usage_pop
-from .ops.fused_fitness import fused_scielab_err_sums
+from .ops.fused_fitness import fused_scielab_err_sums, kernel_taps
 from .ops.kmeans import kmeans_init_palettes
 from .scielab import transform as sct
 from .scielab.filters import ScielabFilters, build_filters
@@ -108,6 +108,7 @@ def _make_context(
         "target_planar": torch.movedim(target_lab, -1, 0).contiguous(),  # (3, H, W)
         "kh": kh,
         "kv": kv,
+        "taps_on_host": kernel_taps(kh, kv),  # B2's coefficient parameter
         "whitepoint": tuple(float(v) for v in wp),
     }
 
@@ -121,7 +122,7 @@ def _make_batch_context(
     ctxs = [_make_context(im, filters, cfg, device) for im in images_bhwc]
     stacked = ("assign_pixels", "target_lab", "target_planar")
     ctx = {k: torch.stack([c[k] for c in ctxs]) for k in stacked}
-    ctx.update({k: ctxs[0][k] for k in ("kh", "kv", "whitepoint")})
+    ctx.update({k: ctxs[0][k] for k in ("kh", "kv", "taps_on_host", "whitepoint")})
     return ctx
 
 
@@ -177,7 +178,7 @@ def make_population_fitness(ctx: dict, cfg: QuantizationConfig):
         )
         sums = fused_scielab_err_sums(
             opp.reshape(*palettes.shape[:-2], 3, H, W), ctx["target_planar"], ctx["kh"],
-            ctx["kv"], wp, cfg.deltaE, precision=conv_precision,
+            ctx["kv"], wp, cfg.deltaE, precision=conv_precision, taps_on_host=ctx["taps_on_host"],
         )
         usage = counts > 0
         return sums / (H * W) + schedule.unused_penalty(usage, cfg.swasa.delta), usage

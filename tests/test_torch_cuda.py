@@ -570,3 +570,145 @@ def test_two_gloo_ranks_share_the_card(cuda_device):
     np.testing.assert_array_equal(ranks[0]["use"], use.cpu().numpy())
     imax = cfg.swasa.imax
     assert ranks[0]["launches"] == (2 * (1 + imax), 2 * (1 + imax))  # member-pipelined: one per member
+
+
+def _b2_check(q, target, kh, kv, kind="CIE76", precision="f32x3", **guards):
+    """B2 against its plain version (SUM_RTOL) and against itself run to run."""
+    args = (q, target, kh, kv, cs.WHITEPOINT_D65, kind)
+    got = ff.fused_scielab_err_sums(*args, precision=precision, **guards)
+    again = ff.fused_scielab_err_sums(*args, precision=precision, **guards)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = ff.fused_scielab_err_sums_reference(*args, precision=precision, **guards)
+    torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
+    return got
+
+
+@pytest.mark.parametrize("precision", ["f32x3", "bf16"])
+@pytest.mark.parametrize("H,W", [(11, 11), (12, 300), (33, 65), (257, 31), (70, 97)])
+def test_b2_fused_kernel_at_ragged_and_narrow_shapes(cuda_device, precision, H, W):
+    """H and W off the fused kernel's 32 x 32 tile and 512-row segment, down
+    to one column more than the filter's half-width (10)."""
+    f = build_filters()
+    kh, kv = stacked_kernels(f, False, cuda_device), stacked_kernels(f, True, cuda_device)
+    q, target = _b2_inputs(cuda_device, 2, H, W, 40)
+    before = (ff.fused_scielab_err_sums.launches, ff.fused_scielab_err_sums.two_pass_launches)
+    got = _b2_check(q, target, kh, kv, "CIEDE2000", precision)
+    assert got.shape == (2, 3)
+    assert (ff.fused_scielab_err_sums.launches, ff.fused_scielab_err_sums.two_pass_launches) == (
+        before[0] + 2, before[1])
+
+
+def _random_filters(taps, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    k = torch.rand((2, 7, taps), generator=g)
+    k /= k.sum(-1, keepdim=True)
+    return k[0].contiguous().to(dev), k[1].contiguous().to(dev)
+
+
+@pytest.mark.parametrize("precision", ["f32x3", "bf16"])
+def test_b2_fused_and_two_pass_paths_around_the_tap_limit(cuda_device, precision, monkeypatch):
+    """MAX_FUSED_TAPS runs the fused kernel, two more taps the two-pass path;
+    both against their plain versions, counted apart. Then the fused kernel
+    at the largest filter its shared-memory layout holds (97 taps), where the
+    plan's shared bytes must cover the kernel's layout."""
+    q, target = _b2_inputs(cuda_device, 1, 130, 150, 41)
+
+    def run(taps, two_pass):
+        kh, kv = _random_filters(taps, taps, cuda_device)
+        before = ff.fused_scielab_err_sums.two_pass_launches
+        _b2_check(q[0], target[0], kh, kv, "CIE94", precision)
+        assert ff.fused_scielab_err_sums.two_pass_launches - before == two_pass, taps
+        assert ff.fused_plan(130, 150, taps)["path"] == ("two_pass" if two_pass else "fused")
+
+    run(ff.MAX_FUSED_TAPS, 0)
+    run(ff.MAX_FUSED_TAPS + 2, 2)
+    run(3, 0)
+    assert ff.fused_smem_bytes(97) <= ff.SMEM_LIMIT < ff.fused_smem_bytes(99)
+    monkeypatch.setattr(ff, "MAX_FUSED_TAPS", 97)
+    run(97, 0)
+
+
+@pytest.mark.parametrize("precision", ["f32x3", "bf16"])
+def test_b2_slabs_on_shards_narrower_than_a_tile(cuda_device, precision):
+    """B2s on shards of 12, 13, 31 and 14 columns of a 90 x 70 frame (at
+    least the filter's half-width, 10, as the column plan requires; under
+    the fused kernel's 32): each against its plain version, their total
+    against mirror B2's."""
+    f = build_filters()
+    kh, kv = stacked_kernels(f, False, cuda_device), stacked_kernels(f, True, cuda_device)
+    q, target = _b2_inputs(cuda_device, 1, 90, 70, 42)
+    q, target = q[0], target[0]
+    cols = ((0, 12), (12, 25), (25, 56), (56, 70))
+    shards = _b2s_shards(q, target, kh, kv, cols, "CIE76", precision)
+    torch.cuda.synchronize()
+    for got, want in shards:
+        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
+    whole = ff.fused_scielab_err_sums(q, target, kh, kv, cs.WHITEPOINT_D65, precision=precision)
+    torch.testing.assert_close(sum(g.double() for g, _ in shards), whole.double(), rtol=SUM_RTOL, atol=0)
+
+
+def _check_b1_modes(feats, pals, precision, tie_mode):
+    """B1 against its plain version: bf16 equal everywhere; fp32 equal off
+    the distinct near-tie class, counts within 2 per such pixel."""
+    opps = cs.srgb_to_opp(pals)
+    kw = dict(precision=precision, tie_mode=tie_mode)
+    opp, counts, idx = ak.assign_opp_usage_pop(feats, pals, opps, return_index=True, **kw)
+    torch.cuda.synchronize()
+    p_opp, p_counts, p_idx = ak.assign_opp_usage_pop_reference(feats, pals, opps, **kw)
+    if precision == "bf16":
+        assert torch.equal(idx, p_idx) and torch.equal(counts, p_counts) and torch.equal(opp, p_opp)
+    else:
+        near = 0
+        for p in range(pals.shape[0]):
+            real = ~torch.isnan(pals[p]).any(-1)
+            ok = ~_distinct_near_tie(feats, pals[p][real]) & ~torch.isnan(feats).any(-1)
+            assert torch.equal(idx[p][ok], p_idx[p][ok])
+            assert torch.equal(opp[p][:, ok], p_opp[p][:, ok])
+            near += int((~ok).sum())
+        assert (counts - p_counts).abs().sum() <= 2 * near
+    return opp, counts, idx
+
+
+@pytest.mark.parametrize("precision", ["f32x3", "bf16"])
+@pytest.mark.parametrize("tie_mode", ["first", "average"])
+def test_b1_duplicates_straddling_chunk_and_tile_boundaries(cuda_device, precision, tie_mode):
+    """Exact duplicates on both sides of a scan chunk (8 and 16 entries) and
+    of the 1024-entry shared tile, and across tiles: the first copy wins;
+    averaging, every copy is a hit."""
+    K = 1100
+    feats = _rand((40000, 3), 50, cuda_device)
+    pals = _rand((2, K, 3), 51, cuda_device)
+    pairs = ((7, 8), (15, 16), (15, 17), (31, 32), (1023, 1024), (3, 1030))
+    for a, b in pairs:
+        pals[:, b] = pals[:, a]
+    for a, b in pairs:  # each pair wins at least the pixel at its own colour
+        feats[a] = pals[0, a]
+    _, counts, idx = _check_b1_modes(feats, pals, precision, tie_mode)
+    for a, b in pairs:
+        assert int(idx[0, a]) == a
+        if tie_mode == "first":
+            assert counts[0, b] == 0 and counts[0, a] > 0
+        else:
+            assert counts[0, a] == counts[0, b] > 0
+
+
+@pytest.mark.parametrize("K", [1, 17, 1025, 4097])
+@pytest.mark.parametrize("precision,tie_mode", [("f32x3", "first"), ("bf16", "first"), ("f32x3", "average"),
+                                                ("bf16", "average")])
+def test_b1_nan_entries_ragged_pixels_and_palette_sizes(cuda_device, K, precision, tie_mode):
+    """P = 52073 (not a multiple of pixels per thread x threads), a NaN
+    pixel, NaN entries (never a winner) and K about the scan's chunk, tile
+    and histogram sizes."""
+    feats = _rand((173 * 301, 3), 60 + K, cuda_device)
+    feats[9] = float("nan")
+    pals = _rand((3, K, 3), 61 + K, cuda_device)
+    if K > 1:
+        pals[0, K // 2] = float("nan")
+        pals[2, 0] = float("nan")
+    opp, counts, idx = _check_b1_modes(feats, pals, precision, tie_mode)
+    assert bool((idx[:, 9] == -1).all()) and bool((opp[:, :, 9] == 0).all())
+    if K > 1:
+        assert counts[0, K // 2] == 0 and counts[2, 0] == 0
+    total = counts.sum(-1)
+    assert bool((total == feats.shape[0] - 1).all() if tie_mode == "first" else (total >= feats.shape[0] - 1).all())

@@ -154,3 +154,44 @@ def test_context_target_matches_jax():
     np.testing.assert_array_equal(
         ctx["target_planar"].numpy(), np.moveaxis(ctx["target_lab"].numpy(), -1, 0)
     )
+
+
+def test_fused_plan_takes_the_fused_kernel_for_the_default_filter():
+    taps = build_filters().half_width * 2 + 1
+    assert taps == ff.DEFAULT_TAPS
+    plan = ff.fused_plan(2160, 3840, taps)
+    assert plan["path"] == "fused" and plan["rows_per_block"] % ff.TILE_H == 0
+    assert plan["partials"] == 120 * -(-2160 // plan["rows_per_block"])
+    # two blocks fit an SM's 228 KB (each with its 1 KB reserve)
+    assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024
+    # a short image takes one segment of its height rounded up to 32 rows
+    assert ff.fused_plan(11, 300, taps) == {**plan, "rows_per_block": 32, "partials": 10}
+
+
+@pytest.mark.parametrize("taps", [1, 3, 21, 23, 63, 95, 97, 99, 101, 1025])
+def test_fused_plan_switches_to_two_passes_above_the_tap_limit(taps):
+    plan = ff.fused_plan(1080, 1920, taps)
+    if taps <= ff.MAX_FUSED_TAPS:
+        assert plan["path"] == "fused" and plan["smem_bytes"] <= ff.SMEM_LIMIT
+    else:
+        assert plan == {"path": "two_pass", "rows_per_block": 0, "smem_bytes": 28 * taps,
+                        "partials": 8 * 1080}
+    # the limit is the largest odd filter whose ring and staging buffers fit
+    assert ff.fused_smem_bytes(ff.MAX_FUSED_TAPS) <= ff.SMEM_LIMIT < ff.fused_smem_bytes(ff.MAX_FUSED_TAPS + 2)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_taps_hold_the_default_stacks_once_in_the_context(bf16):
+    """The fused kernel's coefficient parameter at 21 taps: kh then kv,
+    rounded to bf16 in bf16 mode, made once by the context; other filters
+    have none (their coefficients go through shared memory)."""
+    f = build_filters()
+    kh, kv = stacked_kernels(f, False), stacked_kernels(f, True)
+    got = ff.kernel_taps(kh, kv)[bf16]
+    want = torch.stack([kh, kv])
+    want = ak.bf16_round(want) if bf16 else want
+    assert torch.equal(torch.tensor(list(got)).reshape(2, 7, 21), want)
+    ctx = _make_context(np.zeros((24, 24, 3), np.float32), f, QuantizationConfig(), "cpu")
+    assert list(ctx["taps_on_host"][bf16]) == list(got)
+    wide = build_filters(150, 45.0)
+    assert ff.kernel_taps(stacked_kernels(wide, False), stacked_kernels(wide, True)) is None
