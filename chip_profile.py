@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Stage split and device profile of the 4K quality schedule on one GPU.
+"""Stage split and device profile of the 4K quality schedule, or of the
+64-image batch, on one GPU.
 
     python3 chip_profile.py [--trace PATH]
+    python3 chip_profile.py --batch [--inputs DIR] [--trace PATH]
 
 Run from the root of a checkout, on a machine with a CUDA device. The
 schedule is `chip_smoke.py`'s quality schedule, the flow `bench.py` times:
@@ -20,9 +22,23 @@ its order.
    start to the last one's end, the idle share 1 - busy / span, and device
    time and launches by kernel name.
 
+With --batch, the run is `chip_smoke.py`'s batch phase instead:
+`quantize-batch --fast --init kmeans --imax 50 --polish 10 --error-images`
+at K=256, pop 4 over 64 natural images (16 each of 1920x1080, 1280x720,
+1024x768 and 640x480, image i from seed i, through an 8-bit PPM as the
+command reads them) on the engine and bucketing the command uses
+(`parallel.BatchQuantizer`, `batching.run_bucketed`). Each bucket's stages
+run one by one in `BatchQuantizer.run`'s order, each between two
+synchronizations: k-means seeding (histogram + Lloyd steps), context (the
+targets' S-CIELAB), anneal (initial fitness + 50 iterations), polish,
+quantize, error images. Two runs of the 64 (the first cold), then one more
+under the profiler. `--inputs DIR` keeps the 64 PPMs in DIR and reuses them
+on the next call (making them takes most of a minute on 8 processes).
+
 Prints the card's name and power limit, a table of each, and a JSON object
 as the last line. Writes no file but the trace, and that only with
-`--trace PATH`. Imports torch, numpy, the standard library and the port.
+`--trace PATH` (and the inputs, with `--inputs`). Imports torch, numpy,
+the standard library and the port.
 """
 
 from __future__ import annotations
@@ -35,6 +51,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 H, W, K, POP, IMAX, POLISH = 2160, 3840, 256, 4, 50, 10
@@ -99,10 +116,91 @@ def stage_split(img, dev, runs: int) -> list[dict]:
     return splits
 
 
-def device_profile(img, dev, trace: str | None) -> dict:
+def batch_inputs(inputs: str | None) -> list:
+    """The batch phase's 64 images: written as PPMs by a pool of processes
+    (chip_smoke._write_ppm), read back as the command reads them."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import chip_smoke as cs
+    from hybridquantization_tpu_torch import native
+
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = inputs or tmp
+        os.makedirs(folder, exist_ok=True)
+        jobs = [(os.path.join(folder, f"im{i:02d}_{w}x{h}.ppm"), h, w, i)
+                for i, (h, w) in ((i, cs.BATCH_SIZES[i % 4]) for i in range(cs.BATCH_IMAGES))]
+        todo = [j for j in jobs if not os.path.exists(j[0])]
+        if todo:
+            with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                                     mp_context=multiprocessing.get_context("spawn")) as ex:
+                list(ex.map(cs._write_ppm, todo))
+        return [native.load_image(j[0]) for j in jobs]
+
+
+def batch(images, dev, stage) -> list[dict]:
+    """The 64 images bucket by bucket, as chip_smoke's batch phase runs them;
+    `stage(bucket, name, fn)` runs and times fn. Per bucket: its shape and
+    mean S-CIELAB dE."""
+    import chip_smoke as cs
+    from hybridquantization_tpu_torch import QuantizationConfig, SWASAConfig
+    from hybridquantization_tpu_torch.batching import run_bucketed
+    from hybridquantization_tpu_torch.parallel import BatchQuantizer
+    from hybridquantization_tpu_torch.parallel.batch import _anneal, _init_colors, _seeds
+    from hybridquantization_tpu_torch.pipeline import _make_batch_context, make_population_fitness
+    from hybridquantization_tpu_torch.swasa import loop
+
+    cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=cs.K, population=cs.POP, imax=cs.QS_IMAX),
+                             init="kmeans", precision="bf16", tie_mode="average")
+    engine = BatchQuantizer(cfg, device=dev)
+    buckets = []
+
+    def run(stack):
+        n, h, w, _ = stack.shape
+        name = f"{w}x{h}"
+        images = stage(name, "upload", lambda: engine._images(stack))
+        gens = tuple(torch.Generator(device=dev).manual_seed(s) for s in _seeds(None, n, cfg))
+        init = stage(name, "k-means seeding", lambda: _init_colors(gens, images, cfg))
+        ctx = stage(name, "context", lambda: _make_batch_context(images, engine.filters, cfg, dev))
+        fitness = make_population_fitness(ctx, cfg)
+
+        def anneal():
+            state = loop.init_state(gens, fitness, cfg.swasa, init)
+            return _anneal(state, fitness, cfg, None, None)[0]
+
+        state = stage(name, "anneal", anneal)
+        pals = stage(name, "polish", lambda: engine.polish(images, state.best_colors, cs.POLISH))
+        out = stage(name, "quantize", lambda: engine.quantize(images, pals))
+        de, _ = stage(name, "error images", lambda: engine.error_images(images, out))
+        buckets.append({"bucket": name, "images": n, "mean_de": float(de.mean())})
+        return (np.zeros(n),)
+
+    run_bucketed(images, run)
+    return buckets
+
+
+def batch_split(images, dev, runs: int) -> list[dict]:
+    splits = []
+    for _ in range(runs):
+        secs = {}
+
+        def stage(bucket, name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs.setdefault(bucket, {})[name] = time.perf_counter() - t0
+            return out
+
+        buckets = batch(images, dev, stage)
+        splits.append({"seconds": secs, "buckets": buckets})
+    return splits
+
+
+def device_profile(run, trace: str | None) -> dict:
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        schedule(img, dev, lambda name, fn: fn())
+        run()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = trace or os.path.join(tmp, "trace.json")
@@ -137,6 +235,8 @@ def device_profile(img, dev, trace: str | None) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", metavar="PATH", help="also keep the Chrome trace at PATH")
+    parser.add_argument("--batch", action="store_true", help="the 64-image batch instead of the 4K schedule")
+    parser.add_argument("--inputs", metavar="DIR", help="with --batch: keep (and reuse) the 64 PPMs in DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; nothing to run", file=sys.stderr)
@@ -151,24 +251,44 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    img = natural_image(H, W, seed=0)
-    splits = stage_split(img, dev, RUNS)
-    names = list(splits[0]["seconds"])
-    print(f"stage seconds, {W}x{H} K={K} pop={POP}, {RUNS} runs (first cold):")
-    for name in names:
-        print(f"  {name:36s} " + " ".join(f"{s['seconds'][name]:.6f}" for s in splits))
-    totals = [sum(v for k, v in s["seconds"].items() if not k.startswith("(aside)")) for s in splits]
-    print(f"  {'total (without the aside)':36s} " + " ".join(f"{t:.6f}" for t in totals))
-    print("  mean S-CIELAB dE " + " ".join(f"{s['mean_de']:.5f}" for s in splits))
-    prof = device_profile(img, dev, args.trace)
+    if args.batch:
+        t0 = time.perf_counter()
+        images = batch_inputs(args.inputs)
+        print(f"inputs: {len(images)} images in {time.perf_counter() - t0:.1f} s (host)")
+        splits = batch_split(images, dev, RUNS - 1)
+        print(f"stage seconds by bucket, {len(splits)} runs of the 64 (first cold):")
+        totals = [0.0] * len(splits)
+        for bucket in splits[0]["seconds"]:
+            for name in splits[0]["seconds"][bucket]:
+                row = [s["seconds"][bucket][name] for s in splits]
+                totals = [t + r for t, r in zip(totals, row)]
+                print(f"  {bucket:10s} {name:18s} " + " ".join(f"{r:.6f}" for r in row))
+            bucket_totals = [sum(s["seconds"][bucket].values()) for s in splits]
+            print(f"  {bucket:10s} {'total':18s} " + " ".join(f"{t:.6f}" for t in bucket_totals))
+        print(f"  {'all 64':29s} " + " ".join(f"{t:.6f}" for t in totals))
+        print("  mean S-CIELAB dE by bucket " + "; ".join(
+            f"{b['bucket']} {b['mean_de']:.5f}" for b in splits[-1]["buckets"]))
+        prof = device_profile(lambda: batch(images, dev, lambda bucket, name, fn: fn()), args.trace)
+        quality = {"stage_seconds": splits, "total_seconds": totals}
+    else:
+        img = natural_image(H, W, seed=0)
+        splits = stage_split(img, dev, RUNS)
+        names = list(splits[0]["seconds"])
+        print(f"stage seconds, {W}x{H} K={K} pop={POP}, {RUNS} runs (first cold):")
+        for name in names:
+            print(f"  {name:36s} " + " ".join(f"{s['seconds'][name]:.6f}" for s in splits))
+        totals = [sum(v for k, v in s["seconds"].items() if not k.startswith("(aside)")) for s in splits]
+        print(f"  {'total (without the aside)':36s} " + " ".join(f"{t:.6f}" for t in totals))
+        print("  mean S-CIELAB dE " + " ".join(f"{s['mean_de']:.5f}" for s in splits))
+        prof = device_profile(lambda: schedule(img, dev, lambda name, fn: fn()), args.trace)
+        quality = {"stage_seconds": splits, "total_seconds": totals}
     print(f"profile of one warm run: {prof['device_events']} device events, busy "
           f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms span, idle share "
           f"{prof['idle_share']:.4f}")
     for k in prof["by_kernel"][:TOP]:
         print(f"  {k['ms']:10.3f} ms {k['launches']:6d}x  {k['name'][:100]}")
     prof["by_kernel"] = prof["by_kernel"][:TOP]
-    print(json.dumps({"device": smi, "stage_seconds": splits, "total_seconds": totals,
-                      "profile": prof}))
+    print(json.dumps({"device": smi, **quality, "profile": prof}))
     return 0
 
 

@@ -7,22 +7,28 @@ Run from the root of a checkout. It builds the port's CUDA kernels from
 `hybridquantization_tpu_torch/csrc/` (one nvcc per source, in parallel),
 holds each against its plain torch version at the shapes the paths below
 give it (B1 and B2: a 3840x2160 frame at K=256 and a 1024x768 frame at
-K=64, population 4; B3 on one palette: both frames in sRGB and in LAB, and
-the 2^15- and 2^18-bin colour histograms of the k-means seeding and the
-histogram polish), and B1's and B2's fast variants (bf16 scores, the
-"average" tie mode, a bf16 filter) at 4K in sRGB and LAB, B2 at 29, 45,
-69 and 93 taps through both of its paths (the fused kernel with any filter,
-and the two-pass one) and at 123 taps (above the fused kernel's limit)
-through the two-pass path on the 1024x768 frame, prints B2's peak device
-memory per launch (4K/pop4, each batch bucket), checks the annealing slice and the exact Lloyd polish against the plain path on small
-inputs, then drives five paths at full width, each with the launch counts
+K=64, population 4; B3's index and Lloyd-step modes, each a batch of
+problems in one launch: the k-means seeding's 2^15-bin histograms (one
+image x 4 members, a bucket of 16 images x 4 members), a 1080p bucket's
+2^18-bin histogram polish, a 720p bucket's exact polish, the 4K frame in
+sRGB and LAB and the 1024x768 frame), and B1's and B2's fast variants
+(bf16 scores, the "average" tie mode, a bf16 filter) at 4K in sRGB and
+LAB, B2 at 29, 45, 69 and 93 taps through both of its paths (the fused
+kernel with any filter, and the two-pass one) and at 123 taps (above the
+fused kernel's limit) through the two-pass path on the 1024x768 frame,
+prints B2's peak device memory per launch (4K/pop4, each batch bucket),
+checks the annealing slice and the exact Lloyd polish against the plain
+path on small inputs, then drives five paths at full width, each with the
+launch counts
 set to 0 just before it and read just after:
 
   e2e               random init, imax=30: `HybridQuantizer(...).run` and
                     `error_image` (B1, B2; B3 in quantize);
   quality schedule  k-means seeds, imax=50, `.polish` (histogram at 4K),
-                    `quantize`, `error_image` (B1, B2; B3 in every Lloyd
-                    step and quantize), then the exact polish at 4K (B3);
+                    `quantize`, `error_image` (B1, B2; B3: 35 Lloyd steps,
+                    25 seeding all 4 members at once and 10 polishing, and
+                    2 quantize lookups), then the exact polish at 4K (10
+                    B3 Lloyd steps);
   cli               `cli.main(["quantize", ...])` on a 1024x768 `.ppm` with
                     every flag of the flow (exact polish through B3), a
                     resumed second run from its checkpoint, and `error`;
@@ -36,11 +42,13 @@ set to 0 just before it and read just after:
                     through the engine and bucketing the command uses
                     (`parallel.BatchQuantizer` + `batching.run_bucketed`),
                     bucket by bucket, with B1/B2 launched once per iteration
-                    per bucket; after each bucket's count, its batched
+                    per bucket and B3 35 times (a Lloyd step of the
+                    seeding or the polish, all 16 images at once) plus once
+                    (quantize); after each bucket's count, its batched
                     fitness is held bit-equal to its images' own, and its
                     image-axis B1 (bf16, average) and B2 (bf16) launches and
-                    B3 on its first image are held against their plain
-                    versions; then the command itself on four of the
+                    B3's two modes at its shapes are held against their
+                    plain versions; then the command itself on four of the
                     files, one per resolution, whose outputs must equal the
                     engine's for the same images and seeds.
 
@@ -81,9 +89,10 @@ Ranks that share a card measure correctness and overhead, not scaling:
 their collectives go through the host under gloo.
 
 Each phase prints a line or a few. Before the last line it prints the card's
-name and power limit and a JSON object with one entry per kernel (B1-B3 at
-top level: their numbers at the batch's largest bucket and their launches
-there; the probe kernels: their first variant and the probe paths' launches);
+name and power limit and a JSON object with one entry per kernel (B1, B2,
+B3's index mode and its Lloyd-step mode at top level: their numbers at the
+batch's largest bucket and their launches there; the probe kernels: their
+first variant and the probe paths' launches);
 the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 so does a machine without a CUDA device.
@@ -113,19 +122,20 @@ H, W, K, POP, IMAX = 2160, 3840, 256, 4, 30
 CLI_H, CLI_W, CLI_K, CLI_IMAX = 768, 1024, 64, 40  # the cli phase's frame
 QS_IMAX = 50      # the quality schedule's anneal (bench.py's E2E_ANNEAL_ITERS)
 POLISH = 10       # Lloyd polish steps
-SEED_STEPS = POP * 25  # kmeans_init_palettes: 25 weighted Lloyd steps (B3) per member
+SEED_STEPS = 25   # kmeans_init_palettes: 25 weighted Lloyd steps, each one B3 launch for every member (and image)
 NEAR_TIE = 1e-5   # B1: |score gap| (f64) within which f32 rounding may pick either entry
 # B3: near ties are relative, since LAB scores reach ~1e4 where one f32 ulp
 # is ~1e-3: |gap| <= NEAR_TIE_REL * max(1, |score|) of the two entries
 NEAR_TIE_REL = 1e-6
 B2_RTOL = 1e-5    # B2: relative difference of each member's Delta-E sum
 SMALL_ATOL = 2e-5  # slice on a small input, card vs plain path: fitness values
-POLISH_ATOL = 1e-5  # 10 exact Lloyd steps on a small input, card vs plain path
+POLISH_ATOL = 1e-5  # Lloyd steps, card vs plain sums on the same winners (f64 sums in another order)
 CLI_DE_RTOL = 1e-5  # cli `error` vs error_image on the same two files
 # the batch phase: 16 images of each size, image i of size BATCH_SIZES[i % 4] from seed i
 BATCH_SIZES = ((1080, 1920), (720, 1280), (768, 1024), (480, 640))
 BATCH_IMAGES = 64
-B3_PER_IMAGE = SEED_STEPS + POLISH + 1  # k-means seeding, polish, quantize
+HIST_POLISH_PIXELS = 1 << 20  # polish_palette's "auto": the histogram from this many pixels an image on
+LLOYD_RUN = SEED_STEPS + POLISH  # B3 Lloyd-step launches of a seeded, polished run (an image or a bucket)
 # the probe kernels (T1-T8): the engine paths launch none of them
 NO_PROBES = {"probe_kloop": 0, "split_rowmax": 0, "split_assign": 0}
 # split-bf16 scores, kernel against plain: the tensor cores' f32 accumulation
@@ -194,9 +204,17 @@ def b2_bound(H: int, W: int, taps: int, pop: int, bf16: bool = False, images: in
                  4.0 * (3 * members * H * W + 3 * images * H * W + 14 * taps + members), bf16)
 
 
-def b3_bound(P: int, K: int) -> dict:
-    """B3: 3 multiply-adds per (pixel, entry); features and palette in, indices out."""
-    return bound(6.0 * P * K, 4.0 * (3 * P + 3 * K + P))
+def b3_bound(F: int, M: int, P: int, K: int) -> dict:
+    """B3 index mode: 3 multiply-adds per (row, entry, problem); each
+    feature set read once for its M palettes, palettes in, indices out."""
+    return bound(6.0 * F * M * P * K, 4.0 * (3 * F * P + 3 * F * M * K + F * M * P))
+
+
+def lloyd_bound(F: int, M: int, P: int, K: int, weighted: bool) -> dict:
+    """B3 Lloyd-step mode: the index mode's scan (its float64 sums, 8
+    operations a row, are under 1% of it at K=256 and left out); features
+    (and weights) read once, palettes in and out."""
+    return bound(6.0 * F * M * P * K, 4.0 * (3 * F * P + weighted * F * P + 6 * F * M * K))
 
 
 def phase_device() -> tuple[str, str]:
@@ -391,82 +409,150 @@ def phase_b2_paths(dev) -> list[dict]:
     return rows
 
 
-def _b3_check(feats, pal) -> tuple[int, float, float]:
-    """B3 against its plain version on the card: (index mismatches, largest
+def _b3_check(feats, pals) -> tuple[torch.Tensor, int, float, float]:
+    """B3's index mode against its plain version on the card, on (P, 3) x
+    (K, 3) or (F, P, 3) x (F, M, K, 3): (indices, mismatches, largest
     absolute score gap among them, largest gap relative to max(1, |score|)).
     Fails when a mismatch lies outside the relative near-tie class."""
     from hybridquantization_tpu_torch.ops import assign_kernel as ak
 
-    idx = ak.assign_idx(feats, pal)
-    want = ak.assign_idx_reference(feats, pal)
+    idx = ak.assign_idx(feats, pals)
+    want = ak.assign_idx_reference(feats, pals)
     torch.cuda.synchronize()
-    if int(idx.min()) < 0 or int(idx.max()) >= pal.shape[0]:
+    K = pals.shape[-2]
+    if int(idx.min()) < 0 or int(idx.max()) >= K:
         fail(f"B3 index out of range: [{int(idx.min())}, {int(idx.max())}]")
-    diff = idx != want
+    F3, P3 = (feats, pals) if feats.dim() == 3 else (feats[None], pals[None, None])
+    diff = (idx != want).reshape(P3.shape[0], P3.shape[1], -1)
     n_diff = int(diff.sum())
     if not n_diff:
-        return 0, 0.0, 0.0
-    (i,) = torch.nonzero(diff, as_tuple=True)
-    f = feats[i].double()
-    ca, cb = pal[idx[i].long()].double(), pal[want[i].long()].double()
-    sa = (f * ca).sum(-1) - 0.5 * (ca * ca).sum(-1)
-    sb = (f * cb).sum(-1) - 0.5 * (cb * cb).sum(-1)
+        return idx, 0, 0.0, 0.0
+    f, m, i = torch.nonzero(diff, as_tuple=True)
+    x = F3[f, i].double()
+    got, ref = idx.reshape(diff.shape)[f, m, i].long(), want.reshape(diff.shape)[f, m, i].long()
+    ca, cb = P3[f, m, got].double(), P3[f, m, ref].double()
+    sa = (x * ca).sum(-1) - 0.5 * (ca * ca).sum(-1)
+    sb = (x * cb).sum(-1) - 0.5 * (cb * cb).sum(-1)
     gap = (sa - sb).abs()
     rel = gap / torch.maximum(sa.abs(), sb.abs()).clamp_min(1.0)
     if float(rel.max()) > NEAR_TIE_REL:
         fail(f"B3 index differs from the plain version off the near-tie class (rel gap {float(rel.max())})")
-    return n_diff, float(gap.max()), float(rel.max())
+    return idx, n_diff, float(gap.max()), float(rel.max())
 
 
-def phase_b3(frames) -> list[dict]:
-    """B3 against its plain version on one palette, at every shape the
-    paths give it: each (label, H x W frame on the card, (K, 3) palette,
-    histogram bits) in `frames` in sRGB and in LAB (quantize, the exact
-    polish), and the bin centres of its colour histograms in sRGB (5 bits:
-    the k-means seeding's 2^15 bins; 6 bits: the histogram polish's 2^18)."""
-    from hybridquantization_tpu_torch import colorspace as cs
+def _lloyd_check(label, feats, pals, weights, idx) -> dict:
+    """B3's Lloyd-step mode on (F, P, 3) x (F, M, K, 3) against the plain
+    sums (centroid_update) on the index mode's winners (`idx`, which equal
+    the plain version's off the near-tie class): within POLISH_ATOL, and
+    within it of the whole plain version (lloyd_step_reference) where the
+    winners are the same; each problem's launch on its own and a second
+    launch bit-equal to the batched one."""
     from hybridquantization_tpu_torch.ops import assign_kernel as ak
+
+    got = ak.lloyd_step(feats, pals, weights)
+    plain = ak.lloyd_step_reference(feats, pals, weights)
+    again = ak.lloyd_step(feats, pals, weights)
+    torch.cuda.synchronize()
+    F, M = pals.shape[:2]
+    on_winners, singles_equal = 0.0, True
+    for f in range(F):
+        w = None if weights is None else weights[f]
+        for m in range(M):
+            want = ak.centroid_update(feats[f], idx[f, m], pals[f, m], w)
+            on_winners = max(on_winners, float((got[f, m] - want).abs().max()))
+            singles_equal &= torch.equal(ak.lloyd_step(feats[f], pals[f, m], w), got[f, m])
+    max_abs = float((got - plain).abs().max())
+    same_winners = torch.equal(idx, ak.assign_idx_reference(feats, pals))
+    if not (on_winners <= POLISH_ATOL and (max_abs <= POLISH_ATOL or not same_winners)):
+        fail(f"B3 Lloyd step {label}: max |diff| {on_winners} from the plain sums on its winners, "
+             f"{max_abs} from the plain version (same winners: {same_winners})")
+    if not torch.equal(got, again) or not singles_equal:
+        fail(f"B3 Lloyd step {label}: not bit-equal run to run ({torch.equal(got, again)}) or to "
+             f"its problems' own launches ({singles_equal})")
+    return {"max_abs_err": max_abs, "max_abs_err_on_winners": on_winners, "same_winners": same_winners,
+            "repeat_bit_equal": True, "batched_bit_equal": True}
+
+
+def _b3_cases(img_dev, pals, cli_dev) -> list:
+    """(label, features (F, P, 3), palettes (F, M, K, 3), weights) at every
+    shape the main paths give B3: the k-means seeding (an image's 2^15 bins
+    x its 4 members; a bucket's 16 images x 4 members), the 1080p bucket's
+    histogram polish (16 x 2^18 bins), the 720p bucket's exact polish (16 x
+    1280x720 pixels), and the 4K frame (quantize; the exact polish) in sRGB
+    and LAB; the cli frame (its exact polish and quantize). Bucket images
+    are crops of the 4K frame, palettes random in sRGB."""
+    from hybridquantization_tpu_torch import colorspace as cs
     from hybridquantization_tpu_torch.ops.kmeans import color_histogram
 
-    cases = []
-    for label, img_dev, pal, hist_bits in frames:
-        px = img_dev.reshape(-1, 3).contiguous()
-        cases.append((f"{label} srgb", px, pal))
-        cases.append((f"{label} lab", cs.srgb_to_lab(px).contiguous(), cs.srgb_to_lab(pal).contiguous()))
-        for bits in hist_bits:
-            centers = color_histogram(px, bits)[1].contiguous()
-            cases.append((f"{label} histogram 2^{3 * bits} bins srgb", centers, pal))
-    out = []
-    for label, feats, p in cases:
-        n_diff, gap, rel = _b3_check(feats, p)
+    g = torch.Generator().manual_seed(5)
+    rand = lambda *shape: torch.rand(shape, generator=g).to(img_dev.device)  # noqa: E731
+    k = pals.shape[1]
+    crops = lambda h, w: torch.stack([  # noqa: E731
+        img_dev[y:y + h, x:x + w].reshape(-1, 3)
+        for y in torch.linspace(0, H - h, 4).long().tolist() for x in torch.linspace(0, W - w, 4).long().tolist()])
+    (h1, w1), (h2, w2) = BATCH_SIZES[:2]
+    px = img_dev.reshape(1, -1, 3)
+    counts, centers = color_histogram(px, 5)
+    big = crops(h1, w1)
+    b_counts, b_centers = color_histogram(big, 5)
+    h_counts, h_centers = color_histogram(big, 6)
+    lab = cs.srgb_to_lab(px).contiguous()
+    return [
+        (f"seeding {W}x{H} 2^15 bins x {POP} members", centers, pals[None].contiguous(), counts),
+        (f"seeding bucket 16 x {w1}x{h1} 2^15 bins x {POP} members", b_centers, rand(16, POP, k, 3), b_counts),
+        (f"histogram polish bucket 16 x {w1}x{h1} 2^18 bins", h_centers, rand(16, 1, k, 3), h_counts),
+        (f"exact polish bucket 16 x {w2}x{h2}", crops(h2, w2), rand(16, 1, k, 3), None),
+        (f"{W}x{H} srgb", px, pals[:1, None].contiguous(), None),
+        (f"{W}x{H} lab", lab, cs.srgb_to_lab(pals[:1, None]).contiguous(), None),
+        (f"{CLI_W}x{CLI_H} srgb", cli_dev.reshape(1, -1, 3), rand(1, 1, CLI_K, 3), None),
+    ]
+
+
+def phase_b3(cases) -> tuple[list, list]:
+    """B3's two modes against their plain versions at every shape in
+    `cases` (_b3_cases), each timed with its bound: (index rows, Lloyd rows)."""
+    from hybridquantization_tpu_torch.ops import assign_kernel as ak
+
+    idx_rows, lloyd_rows = [], []
+    for label, feats, p, w in cases:
+        (F, P, _), (_, M, k, _) = feats.shape, p.shape
+        idx, n_diff, gap, rel = _b3_check(feats, p)
         ms = cuda_ms(lambda: ak.assign_idx(feats, p), 20)
         plain_ms = cuda_ms(lambda: ak.assign_idx_reference(feats, p), 3, warmup=1)
-        print(f"B3 assign_idx {label} P={feats.shape[0]} K={p.shape[0]}: {n_diff} indices differ "
-              f"(max score gap {gap:.3g}, relative {rel:.3g} <= {NEAR_TIE_REL}); "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        out.append({"case": label, "P": feats.shape[0], "K": p.shape[0], "max_abs_err": gap,
-                    "max_rel_gap": rel, "index_mismatches": n_diff, "ms": ms, "plain_ms": plain_ms,
-                    **b3_bound(feats.shape[0], p.shape[0])})
-    return out
+        shape = {"case": label, "F": F, "M": M, "P": P, "K": k}
+        idx_rows.append({**shape, "max_abs_err": gap, "max_rel_gap": rel, "index_mismatches": n_diff,
+                         "ms": ms, "plain_ms": plain_ms, **b3_bound(F, M, P, k)})
+        check = _lloyd_check(label, feats, p, w, idx)
+        l_ms = cuda_ms(lambda: ak.lloyd_step(feats, p, w), 20)
+        l_plain = cuda_ms(lambda: ak.lloyd_step_reference(feats, p, w), 2, warmup=1)
+        lloyd_rows.append({**shape, "weighted": w is not None, **check, "ms": l_ms, "plain_ms": l_plain,
+                           **lloyd_bound(F, M, P, k, w is not None)})
+        print(f"B3 {label} (F={F} M={M} P={P} K={k}): index {n_diff} differ (relative gap {rel:.3g} <= "
+              f"{NEAR_TIE_REL}), kernel {ms:.3f} ms (bound {idx_rows[-1]['bound_ms']:.3f}), plain "
+              f"{plain_ms:.3f} ms; Lloyd step max |diff| {check['max_abs_err_on_winners']:.3g} on its "
+              f"winners (<= {POLISH_ATOL}), {check['max_abs_err']:.3g} from plain, bit-equal run to run and "
+              f"to {F * M} single launches, kernel {l_ms:.3f} ms (bound {lloyd_rows[-1]['bound_ms']:.3f}), "
+              f"plain {l_plain:.3f} ms")
+    return idx_rows, lloyd_rows
 
 
 def phase_small_polish(dev) -> None:
-    """Ten exact Lloyd steps on a small input, card (B3) against the CPU
-    (plain version), from the same palette."""
+    """Ten exact Lloyd steps on a small input, card (B3's Lloyd-step mode)
+    against the CPU (plain version), from the same palette."""
     from hybridquantization_tpu_torch.ops import assign as assign_ops
     from hybridquantization_tpu_torch.ops import assign_kernel as ak
     from hybridquantization_tpu_torch.synth import natural_image
 
     px = torch.as_tensor(natural_image(96, 128, seed=7)).reshape(-1, 3)
     pal = torch.rand((8, 3), generator=torch.Generator().manual_seed(12))
-    before = ak.assign_idx.launches
+    before = ak.lloyd_step.launches
     got = assign_ops.lloyd_polish(px.to(dev), pal.to(dev), POLISH).cpu()
-    launches = ak.assign_idx.launches - before
+    launches = ak.lloyd_step.launches - before
     want = assign_ops.lloyd_polish(px, pal, POLISH)
     err = float((got - want).abs().max())
     if launches != POLISH or not err <= POLISH_ATOL:
-        fail(f"small polish: {launches} B3 launches, max |palette diff| {err}")
-    print(f"polish 128x96 K=8, {POLISH} exact Lloyd steps, card (B3, {launches} launches) vs "
+        fail(f"small polish: {launches} B3 Lloyd-step launches, max |palette diff| {err}")
+    print(f"polish 128x96 K=8, {POLISH} exact Lloyd steps, card (B3 Lloyd step, {launches} launches) vs "
           f"plain path: max |palette diff| {err:.3g} <= {POLISH_ATOL}")
 
 
@@ -478,6 +564,7 @@ def _counts() -> dict:
     return {"assign_pop": ak.assign_opp_usage_pop.launches,
             "fused_fitness": ff.fused_scielab_err_sums.launches,
             "assign_idx": ak.assign_idx.launches,
+            "lloyd_step": ak.lloyd_step.launches,
             "probe_kloop": pk.kloop_assign.launches,
             "split_rowmax": pk.split_rowmax.launches,
             "split_assign": pk.split_assign.launches}
@@ -488,20 +575,25 @@ def _reset_counts() -> None:
     from hybridquantization_tpu_torch.ops import fused_fitness as ff
     from hybridquantization_tpu_torch.ops import probe_kernels as pk
 
-    for fn in (ak.assign_opp_usage_pop, ff.fused_scielab_err_sums, ak.assign_idx,
+    for fn in (ak.assign_opp_usage_pop, ff.fused_scielab_err_sums, ak.assign_idx, ak.lloyd_step,
                pk.kloop_assign, pk.split_rowmax, pk.split_assign):
         fn.launches = 0
+    ak.lloyd_step.unfused_launches = 0
     ff.fused_scielab_err_sums.slab_launches = 0
     ff.fused_scielab_err_sums.two_pass_launches = 0
 
 
 def _fused_only(what: str) -> None:
-    """Fail if B2 took its two-pass path since the counts were reset: at
-    the default 21 taps every launch is the fused kernel."""
+    """Fail if B2 took its two-pass path, or a Lloyd step the index mode and
+    plain sums, since the counts were reset: at the default 21 taps and
+    K=256 every launch is the fused kernel."""
+    from hybridquantization_tpu_torch.ops import assign_kernel as ak
     from hybridquantization_tpu_torch.ops import fused_fitness as ff
 
     if ff.fused_scielab_err_sums.two_pass_launches:
         fail(f"{what}: B2 took the two-pass path {ff.fused_scielab_err_sums.two_pass_launches} times")
+    if ak.lloyd_step.unfused_launches:
+        fail(f"{what}: {ak.lloyd_step.unfused_launches} Lloyd steps ran unfused")
 
 
 def _timed(fn):
@@ -530,8 +622,9 @@ def _run_schedule(img, dev, cfg):
     out, t_quant = _timed(lambda: q.quantize(img, palette))
     (mean, viz), t_err = _timed(lambda: q.error_image(img, out))
     launches = _counts()
-    want = {"assign_pop": 1 + QS_IMAX, "fused_fitness": 1 + QS_IMAX,
-            "assign_idx": SEED_STEPS + 1 + POLISH + 1, **NO_PROBES}
+    # B3: the run's quantize and the final one; the seeding's and the polish's Lloyd steps
+    want = {"assign_pop": 1 + QS_IMAX, "fused_fitness": 1 + QS_IMAX, "assign_idx": 2,
+            "lloyd_step": LLOYD_RUN, **NO_PROBES}
     if launches != want:
         fail(f"the schedule launched {launches}, not {want}")
     _fused_only("the schedule")
@@ -548,9 +641,9 @@ def _run_schedule(img, dev, cfg):
 def phase_quality_schedule(img, dev, random_de: float) -> tuple[dict, dict]:
     """The flow bench.py times, at 4K/K256/pop4: k-means seeds, 50 SWASA
     iterations, 10 Lloyd polish steps (the histogram path at 4K), quantize,
-    error_image; then the exact polish at 4K. B3 runs in every Lloyd step
-    of the seeding and the polish and in both quantize passes (the run's
-    own and the final one)."""
+    error_image; then the exact polish at 4K. B3 runs every Lloyd step of
+    the seeding (all members in one launch) and of the polish, and both
+    quantize passes (the run's own and the final one)."""
     from hybridquantization_tpu_torch import QuantizationConfig, SWASAConfig
     from hybridquantization_tpu_torch.ops import assign as assign_ops
     from hybridquantization_tpu_torch.ops.kmeans import kmeans_init_palettes
@@ -569,9 +662,10 @@ def phase_quality_schedule(img, dev, random_de: float) -> tuple[dict, dict]:
     exact, t_exact = _timed(lambda: assign_ops.polish_palette(
         img_dev.reshape(-1, 3), info["palette"], "srgb", q._whitepoint, POLISH, method="exact"))
     exact_launches = _counts()
-    b3 = exact_launches["assign_idx"]
-    if b3 != POLISH:
-        fail(f"assign_idx launched {b3} times in the exact polish, not {POLISH}")
+    b3 = exact_launches["lloyd_step"]
+    if b3 != POLISH or exact_launches["assign_idx"]:
+        fail(f"the exact polish launched {exact_launches}, not {POLISH} Lloyd steps")
+    _fused_only("the exact polish")
     if not (bool(torch.isfinite(exact).all()) and float(exact.min()) >= 0 and float(exact.max()) <= 1):
         fail(f"exact polish palette out of range: [{float(exact.min())}, {float(exact.max())}]")
     mean_exact, _ = q.error_image(img, q.quantize(img, exact))
@@ -581,7 +675,7 @@ def phase_quality_schedule(img, dev, random_de: float) -> tuple[dict, dict]:
           f"error_image {secs['error_image']:.3f} s; warm repeats: context {t_ctx:.3f} s, k-means seeding "
           f"{t_seed:.3f} s); best fitness {info['best_error']:.5f}, mean S-CIELAB dE "
           f"{mean:.5f} (random init imax={IMAX}: {random_de:.5f}), {n_colors} colours; "
-          f"launches {launches}; exact polish {t_exact:.3f} s, B3 launched {b3} times, dE after "
+          f"launches {launches}; exact polish {t_exact:.3f} s, {b3} B3 Lloyd steps, dE after "
           f"exact polish {float(mean_exact):.5f} vs hist polish {mean:.5f}")
     return launches, exact_launches
 
@@ -662,18 +756,19 @@ def phase_cli(dev) -> dict:
         n_colors = len(np.unique(out.reshape(-1, 3), axis=0))
         if out.shape != (CLI_H, CLI_W, 3) or n_colors > CLI_K or np.load(pal).shape != (CLI_K, 3):
             fail(f"cli output {out.shape} with {n_colors} colours")
-        # B3: the k-means seeding's Lloyd steps, the exact polish, the dithered quantize
-        want = {"assign_pop": 1 + CLI_IMAX, "fused_fitness": 1 + CLI_IMAX,
-                "assign_idx": SEED_STEPS + POLISH + 1, **NO_PROBES}
+        # B3: the k-means seeding's and the exact polish's Lloyd steps, the dithered quantize
+        want = {"assign_pop": 1 + CLI_IMAX, "fused_fitness": 1 + CLI_IMAX, "assign_idx": 1,
+                "lloyd_step": LLOYD_RUN, **NO_PROBES}
         if first != want:
             fail(f"cli quantize launched {first}, not {want}")
+        _fused_only("cli quantize")
         quant_de = float(re.findall(r"DeltaE : (\S+)", text)[-1])
 
         text2, second, _ = run(argv)
         if "resuming from" not in text2 or f"at iteration {CLI_IMAX}" not in text2:
             fail(f"cli second run did not resume at iteration {CLI_IMAX}: {text2[-500:]}")
         # no seeding and no iteration: B3 only in the polish and the quantize
-        want = {"assign_pop": 0, "fused_fitness": 0, "assign_idx": POLISH + 1, **NO_PROBES}
+        want = {"assign_pop": 0, "fused_fitness": 0, "assign_idx": 1, "lloyd_step": POLISH, **NO_PROBES}
         if second != want:
             fail(f"cli resumed run launched {second}, not {want}")
 
@@ -685,8 +780,8 @@ def phase_cli(dev) -> dict:
             fail(f"cli error printed dE {cli_de}, error_image gives {float(want)}")
     print(f"cli quantize {CLI_W}x{CLI_H} -k {CLI_K} --imax {CLI_IMAX} --init kmeans --polish "
           f"{POLISH} --dither 0.5 --checkpoint: {secs:.3f} s, {n_colors} colours, dE "
-          f"{quant_de:.5f} (float output); launches {first} (B3: {SEED_STEPS} seeding steps + "
-          f"{POLISH} exact polish steps + 1 quantize); resumed run launches {second}; cli error dE {cli_de:.6f} = "
+          f"{quant_de:.5f} (float output); launches {first} (B3: {SEED_STEPS} seeding steps for all members + "
+          f"{POLISH} exact polish steps, 1 quantize); resumed run launches {second}; cli error dE {cli_de:.6f} = "
           f"error_image {float(want):.6f} on the 8-bit files")
     return first
 
@@ -792,17 +887,19 @@ def phase_fast_kernels(img, img_dev, pals, dev) -> tuple[list, list]:
     return b1, b2
 
 
-def _bucket_kernels(ctx, pals, palette, cfg) -> dict:
+def _bucket_kernels(ctx, pals, palettes, cfg) -> dict:
     """One bucket's image-axis launches of B1 and B2 in the variants
     `quantize-batch --fast` runs them (bf16 + average; bf16) against their
     plain versions on the same (B, P, 3) features and (B, pop, K, 3)
     palettes (B1: zero index, count and colour mismatches, as in
-    phase_fast_kernels; B2 within B2_RTOL), and B3 on the bucket's first
-    image with its final palette (quantize's lookup; the relative near-tie
-    class); each timed beside its plain version (one plain call)."""
+    phase_fast_kernels; B2 within B2_RTOL), and B3's two modes at the
+    bucket's shapes with each image's final palette (`palettes`, (B, K, 3)):
+    quantize's lookup (the relative near-tie class) and a polish step
+    (_lloyd_check); each timed beside its plain version."""
     from hybridquantization_tpu_torch import colorspace as cs
     from hybridquantization_tpu_torch.ops import assign_kernel as ak
     from hybridquantization_tpu_torch.ops import fused_fitness as ff
+    from hybridquantization_tpu_torch.ops.kmeans import color_histogram
     from hybridquantization_tpu_torch.pipeline import _features
 
     feats = ctx["assign_pixels"]
@@ -838,15 +935,31 @@ def _bucket_kernels(ctx, pals, palette, cfg) -> dict:
     b2_peak = _peak_mib(lambda: ff.fused_scielab_err_sums(*args, precision=conv, **host))
     del opp, args
 
-    f0 = feats[0].contiguous()
-    n3, gap, rel3 = _b3_check(f0, palette)
-    b3_ms = cuda_ms(lambda: ak.assign_idx(f0, palette), 20)
-    b3_plain = cuda_ms(lambda: ak.assign_idx_reference(f0, palette), 3, warmup=1)
+    # B3 at the bucket's shapes: quantize's lookup (each image's final
+    # palette), and a Lloyd step of its polish (the histogram from 2^20
+    # pixels an image on, as polish_palette's "auto")
+    pals3 = palettes[:, None].contiguous()
+    idx, n3, gap, rel3 = _b3_check(feats, pals3)
+    b3_ms = cuda_ms(lambda: ak.assign_idx(feats, pals3), 20)
+    b3_plain = cuda_ms(lambda: ak.assign_idx_reference(feats, pals3), 3, warmup=1)
+    if P >= HIST_POLISH_PIXELS:
+        counts, centers = color_histogram(feats, 6)
+        polish = ("histogram polish", centers.contiguous(), counts)
+        idx = ak.assign_idx(centers, pals3)
+    else:
+        polish = ("exact polish", feats, None)
+    what, lf, lw = polish
+    check = _lloyd_check(f"bucket {bucket} x{n} {what}", lf, pals3, lw, idx)
+    l_ms = cuda_ms(lambda: ak.lloyd_step(lf, pals3, lw), 20)
+    l_plain = cuda_ms(lambda: ak.lloyd_step_reference(lf, pals3, lw), 2, warmup=1)
     print(f"batch bucket {bucket} x{n} against the plain versions: B1 {kw['precision']} "
           f"{kw['tie_mode']} image axis 0 index/colour and 0 count mismatches, kernel {b1_ms:.3f} ms, "
           f"plain {t_b1 * 1e3:.3f} ms; B2 {conv} image axis max rel diff {rel:.3g} <= {B2_RTOL}, kernel "
-          f"{b2_ms:.3f} ms, plain {t_b2 * 1e3:.3f} ms, peak of one launch {b2_peak:.3f} MiB; B3 image 0 K={k}: {n3} indices differ "
-          f"(relative gap {rel3:.3g} <= {NEAR_TIE_REL}), kernel {b3_ms:.3f} ms, plain {b3_plain:.3f} ms")
+          f"{b2_ms:.3f} ms, plain {t_b2 * 1e3:.3f} ms, peak of one launch {b2_peak:.3f} MiB; B3 quantize "
+          f"lookup F={n} K={k}: {n3} indices differ (relative gap {rel3:.3g} <= {NEAR_TIE_REL}), kernel "
+          f"{b3_ms:.3f} ms, plain {b3_plain:.3f} ms; B3 {what} step P={lf.shape[1]}: max |diff| "
+          f"{check['max_abs_err_on_winners']:.3g} on its winners, {check['max_abs_err']:.3g} from plain, "
+          f"bit-equal run to run and to single launches, kernel {l_ms:.3f} ms, plain {l_plain:.3f} ms")
     row = {"bucket": bucket, "images": n, "bucket_pixels": n * P}
     return {
         "assign_pop": {**row, "variant": f"srgb {kw['precision']} {kw['tie_mode']}", "K": k, "pop": pop,
@@ -855,9 +968,11 @@ def _bucket_kernels(ctx, pals, palette, cfg) -> dict:
         "fused_fitness": {**row, "variant": conv, "pop": pop, "max_abs_err": b2_abs, "max_rel_err": rel,
                           "ms": b2_ms, "plain_ms": t_b2 * 1e3, "peak_mib_per_launch": b2_peak,
                           **b2_bound(h, w, ctx["kh"].shape[1], pop, bf16=True, images=n)},
-        "assign_idx": {**row, "case": "image 0 srgb", "P": P, "K": k, "max_abs_err": gap,
+        "assign_idx": {**row, "case": "quantize lookup", "F": n, "M": 1, "P": P, "K": k, "max_abs_err": gap,
                        "max_rel_gap": rel3, "index_mismatches": n3, "ms": b3_ms, "plain_ms": b3_plain,
-                       **b3_bound(P, k)},
+                       **b3_bound(n, 1, P, k)},
+        "lloyd_step": {**row, "case": what, "F": n, "M": 1, "P": lf.shape[1], "K": k, **check,
+                       "ms": l_ms, "plain_ms": l_plain, **lloyd_bound(n, 1, lf.shape[1], k, lw is not None)},
     }
 
 
@@ -911,15 +1026,16 @@ def phase_batch(dev) -> dict:
             _fused_only(f"batch bucket {stack.shape[2]}x{stack.shape[1]}")
             peak = torch.cuda.max_memory_allocated()
             n, h, w, _ = stack.shape
-            want = {"assign_pop": 1 + QS_IMAX, "fused_fitness": 1 + QS_IMAX,
-                    "assign_idx": n * B3_PER_IMAGE, **NO_PROBES}
+            want = {"assign_pop": 1 + QS_IMAX, "fused_fitness": 1 + QS_IMAX, "assign_idx": 1,
+                    "lloyd_step": LLOYD_RUN, **NO_PROBES}
             if launches != want:
                 fail(f"batch bucket {w}x{h} of {n} launched {launches}, not {want}")
             colours = max(len(torch.unique(o.reshape(-1, 3), dim=0)) for o in out)
             if not (bool(torch.isfinite(de).all()) and bool(torch.isfinite(out).all())) or colours > K:
                 fail(f"batch bucket {w}x{h}: dE {de.tolist()}, {colours} colours")
             print(f"batch bucket {w}x{h} x{n}: {secs:.3f} s, {n * h * w / secs / 1e6:.2f} Mpix/s, "
-                  f"mean dE {float(de.mean()):.5f}, launches {launches} (B1/B2 1 + imax per bucket), "
+                  f"mean dE {float(de.mean()):.5f}, launches {launches} (B1/B2 1 + imax, B3 {LLOYD_RUN} Lloyd "
+                  f"steps and 1 quantize per bucket), "
                   f"peak {peak / 2**30:.2f} GiB")
             # the bucket's batched fitness against each image's own, on the
             # final populations, then each kernel at the bucket's shapes
@@ -933,7 +1049,7 @@ def phase_batch(dev) -> dict:
                 if not (torch.equal(err[i], e) and torch.equal(use[i], u)):
                     fail(f"batch bucket {w}x{h}: image {i}'s batched fitness differs from its own")
             print(f"batch bucket {w}x{h} x{n}: batched fitness bit-equal to each image's own")
-            rows = _bucket_kernels(bctx, pals, info["palettes"][0], cfg)
+            rows = _bucket_kernels(bctx, pals, info["palettes"], cfg)
             for name_, row in rows.items():
                 row["launches"] = launches[name_]
             for name_ in ("assign_pop", "fused_fitness"):
@@ -970,8 +1086,8 @@ def phase_batch(dev) -> dict:
         torch.cuda.synchronize()
         t_cli = time.perf_counter() - t0
         cli_launches = _counts()
-        want = {"assign_pop": 4 * (1 + QS_IMAX), "fused_fitness": 4 * (1 + QS_IMAX),
-                "assign_idx": 4 * B3_PER_IMAGE, **NO_PROBES}
+        want = {"assign_pop": 4 * (1 + QS_IMAX), "fused_fitness": 4 * (1 + QS_IMAX), "assign_idx": 4,
+                "lloyd_step": 4 * LLOYD_RUN, **NO_PROBES}
         if rc != 0 or cli_launches != want:
             fail(f"quantize-batch exited {rc}, launched {cli_launches}, not {want}: {text.getvalue()[-2000:]}")
         lines = [ln for ln in text.getvalue().splitlines() if "error=" in ln and "DeltaE=" in ln]
@@ -1546,7 +1662,8 @@ def _engine_against_one_device(ranks, img, dev, label) -> dict:
     secs = time.perf_counter() - t0
     de_rel = float(r0["de"][0]) / float(de[0]) - 1
     want = {"assign_pop": POP * (1 + QS_IMAX), "fused_fitness": POP * (1 + QS_IMAX),
-            "fused_fitness_slabs": POP * (1 + QS_IMAX), "assign_idx": SEED_STEPS + POLISH + 1, **NO_PROBES}
+            "fused_fitness_slabs": POP * (1 + QS_IMAX), "assign_idx": 1, "lloyd_step": LLOYD_RUN,
+            **NO_PROBES}
     if r0["launches"] != want:
         fail(f"{label}: each rank launched {r0['launches']}, not {want}")
     if abs(de_rel) > MESH_DE_REL or r0["colours"] > K:
@@ -1651,10 +1768,9 @@ def main() -> int:
     b2_cli = phase_b2(cli_img, cli_opp, dev)
     b2_paths = phase_b2_paths(dev)
     b2s = phase_mesh_b2s(img, opp, dev)
-    # the cli frame is under 2^20 pixels: its polish is exact, only its seeding bins
-    b3 = phase_b3([(f"{W}x{H}", img_dev, pals[0].contiguous(), (5, 6)),
-                   (f"{CLI_W}x{CLI_H}", cli_dev, cli_pals[0].contiguous(), (5,))])
+    b3, lloyd = phase_b3(_b3_cases(img_dev, pals, cli_dev))
     del opp, cli_opp, cli_dev
+    torch.cuda.empty_cache()
     b1_fast, b2_fast = phase_fast_kernels(img, img_dev, pals, dev)
     del img_dev
     torch.cuda.empty_cache()
@@ -1710,6 +1826,8 @@ def main() -> int:
         ("fused_fitness", "csrc/fused_fitness.cu", "ops/fused_fitness.py:597",
          [{"variant": "f32x3", **b2}, *b2_fast, *b2s, *b2_paths], [b2_cli]),
         ("assign_idx", "csrc/assign_idx.cu", "ops/pallas_assign.py:420", [], b3),
+        # the index kernel with the segment sums JAX takes beside it (ops/assign.py:175-176)
+        ("lloyd_step", "csrc/assign_idx.cu", "ops/pallas_assign.py:420", [], lloyd),
     ):
         common = {"name": name_, "route": "cuda",
                   "source": f"hybridquantization_tpu_torch/{source}",

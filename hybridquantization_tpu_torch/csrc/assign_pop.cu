@@ -32,30 +32,18 @@
 // the earlier 2.479, chip_smoke.py; of 2 or 4 pixels a thread and chunks of
 // 8 or 16, timed against each other while the kernel was built, 4 and 16
 // were the fastest):
-//  - kPx pixels per thread (pixel r of a thread at r x 256 + its lane, so
-//    loads and stores stay coalesced): one shared float4 load of an entry,
-//    a broadcast across the warp, feeds all of them;
-//  - a max-then-rescan scan: over each chunk of kChunk entries a pixel keeps
-//    only fmaxf of its scores (fmaxf drops NaN, so a NaN never wins; an
-//    all-NaN pixel keeps index -1); after the chunk one compare and two
-//    selects record a chunk maximum strictly above the running best and
-//    that chunk's number (in average mode: whether it equals the best, and
-//    how many chunks reached it). After the scan one rescan of the first
-//    winning chunk, by the same FMA chain in the same order, takes its first
-//    entry equal to the best, so winners are exactly those of a strict `>`
-//    scan in index order: first index within the chunk, and across chunks
-//    because the chunk is the first to reach the best. In average mode the
-//    rescan of the winning chunk counts and sums its hits in index order; a
-//    pixel whose best is reached in two or more chunks (duplicate entries
-//    in different chunks) rescans from the first of them to the end;
+//  - the scan of nearest_scan.cuh (shared with B3): kPx pixels a thread,
+//    chunks of kChunk entries scanned with fmaxf alone, a strict `>`
+//    against the running best, one rescan of the first winning chunk (in
+//    average mode: the rescan of the winning chunk counts and sums its hits
+//    in index order; a pixel whose best is reached in two or more chunks,
+//    duplicate entries in different chunks, rescans from the first of them
+//    to the end);
 //  - a first small kernel packs each palette entry once as a (c0, c1, c2,
 //    bias) float4, the counterpart of JAX's pack_palette; the main kernel
-//    stages those in shared memory in tiles of kTileK entries, each chunk
-//    padded to kChunk + 1 float4s (so the rescans of different chunks by the
-//    threads of a warp spread over the banks) and the last chunk filled with
-//    entries that score -inf, and loops over the tiles, so K has no ceiling
-//    (a rescan of a chunk in an earlier tile reads the packed entries from
-//    device memory);
+//    stages those in shared memory in tiles of kTileK entries and loops over
+//    the tiles, so K has no ceiling (a rescan of a chunk in an earlier tile
+//    reads the packed entries from device memory);
 //  - counts go to a per-block shared-memory int32 histogram, then to the
 //    global counts with one int32 atomicAdd per non-empty bin. Integer
 //    atomics are exact and their order does not matter. K above kHistK adds
@@ -71,12 +59,14 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "nearest_scan.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPx = 4;       // pixels per thread
-constexpr int kChunk = 16;   // entries per max-then-rescan chunk
-constexpr int kTileK = 1024;  // most palette entries per shared tile (17 KB padded)
+using hq::kChunk;
+using hq::kPx;
+using hq::kTileK;
+constexpr int kThreads = hq::kScanThreads;
 constexpr int kHistK = 4096;  // K up to this uses the shared histogram (up to 16 KB)
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -84,35 +74,15 @@ __device__ __forceinline__ float bf16_round(float x) {
 }
 
 // Pack every palette entry (all images and members) once: c4 = (c0, c1,
-// c2, -|c|^2/2), the bias (c0 c0 + c1 c1) + c2 c2 with every product and
-// sum rounded on its own (no contraction), then halved; in bf16 mode all
-// four then rounded.
+// c2, -|c|^2/2) (hq::pack_entry); in bf16 mode all four then rounded.
 __global__ void __launch_bounds__(kThreads)
 pack_kernel(const float* __restrict__ pal, int n, bool bf16, float4* __restrict__ c4) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const float* c = pal + (size_t)i * 3;
-  const float c0 = c[0], c1 = c[1], c2 = c[2];
-  const float sq =
-      __fadd_rn(__fadd_rn(__fmul_rn(c0, c0), __fmul_rn(c1, c1)), __fmul_rn(c2, c2));
-  const float bias = __fmul_rn(-0.5f, sq);
-  c4[i] = bf16 ? make_float4(bf16_round(c0), bf16_round(c1), bf16_round(c2), bf16_round(bias))
-               : make_float4(c0, c1, c2, bias);
-}
-
-__device__ __forceinline__ float score(float f0, float f1, float f2, float4 t) {
-  return fmaf(f2, t.z, fmaf(f1, t.y, fmaf(f0, t.x, t.w)));
-}
-
-// Stage packed entries [k0, k0 + n) of one member into the padded tile,
-// the last chunk filled with entries scoring -inf. Callers synchronise
-// around it.
-__device__ __forceinline__ void stage(const float4* c4, int k0, int n, float4* tile) {
-  const int padded = (n + kChunk - 1) / kChunk * kChunk;
-  for (int j = threadIdx.x; j < padded; j += kThreads) {
-    tile[j / kChunk * (kChunk + 1) + j % kChunk] =
-        j < n ? c4[k0 + j] : make_float4(0.0f, 0.0f, 0.0f, -INFINITY);
-  }
+  const float4 e = hq::pack_entry(c[0], c[1], c[2]);
+  c4[i] = bf16 ? make_float4(bf16_round(e.x), bf16_round(e.y), bf16_round(e.z), bf16_round(e.w))
+               : e;
 }
 
 template <bool kAverage>
@@ -124,8 +94,7 @@ assign_pop_kernel(const float* __restrict__ feats, const float4* __restrict__ c4
   // dynamic shared memory, sized for this K by hq_assign_pop: tile, hist
   extern __shared__ float4 smem[];
   float4* tile = smem;
-  const int tile_chunks = (min(K, kTileK) + kChunk - 1) / kChunk;
-  int* hist = reinterpret_cast<int*>(smem + tile_chunks * (kChunk + 1));
+  int* hist = reinterpret_cast<int*>(smem + hq::tile_float4s(K));
 
   // image b of the bucket: its pixels, palettes and outputs
   const size_t b = blockIdx.y;
@@ -166,7 +135,7 @@ assign_pop_kernel(const float* __restrict__ feats, const float4* __restrict__ c4
     // entry k of this member: from the tile while it holds it, else from
     // device memory
     auto entry = [&](int k) {
-      return one_tile ? tile[k / kChunk * (kChunk + 1) + k % kChunk] : mc4[k];
+      return one_tile ? tile[hq::tile_slot(k)] : mc4[k];
     };
     if (shared_hist) {
       for (int k = threadIdx.x; k < K; k += kThreads) hist[k] = 0;
@@ -183,31 +152,9 @@ assign_pop_kernel(const float* __restrict__ feats, const float4* __restrict__ c4
     for (int k0 = 0; k0 < K; k0 += kTileK) {
       const int n = min(kTileK, K - k0);
       __syncthreads();  // the previous tile is consumed; hist is zeroed
-      stage(mc4, k0, n, tile);
+      hq::stage([&](int k) { return mc4[k]; }, k0, n, tile);
       __syncthreads();
-      const int chunks = (n + kChunk - 1) / kChunk;
-      for (int c = 0; c < chunks; ++c) {
-        const float4* e = tile + c * (kChunk + 1);
-        float m[kPx];
-#pragma unroll
-        for (int r = 0; r < kPx; ++r) m[r] = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          const float4 t = e[j];
-#pragma unroll
-          for (int r = 0; r < kPx; ++r) m[r] = fmaxf(m[r], score(f[r][0], f[r][1], f[r][2], t));
-        }
-        const int cg = k0 / kChunk + c;
-#pragma unroll
-        for (int r = 0; r < kPx; ++r) {
-          if (kAverage && m[r] == best[r]) wins[r] += 1;
-          if (m[r] > best[r]) {
-            best[r] = m[r];
-            win[r] = cg;
-            wins[r] = 1;
-          }
-        }
-      }
+      hq::scan_tile<kAverage>(tile, n, k0 / kChunk, f, best, win, wins);
     }
 
 #pragma unroll
@@ -224,7 +171,7 @@ assign_pop_kernel(const float* __restrict__ feats, const float4* __restrict__ c4
         // more: from it to the end
         const int hi = kAverage && wins[r] > 1 ? K : min(lo + kChunk, K);
         for (int k = lo; k < hi; ++k) {
-          if (score(f[r][0], f[r][1], f[r][2], entry(k)) == best[r]) {
+          if (hq::score(f[r][0], f[r][1], f[r][2], entry(k)) == best[r]) {
             if (bi < 0) bi = k;
             if (!kAverage) break;
             const float* o = oc + (size_t)k * 3;
@@ -274,8 +221,7 @@ int launch_scan(bool average, int B, int P, int K, int pop, bool bf16, const flo
   const dim3 grid((unsigned)(((size_t)P + kThreads * kPx - 1) / (kThreads * kPx)), (unsigned)B);
   // only what this K needs (about 5 KB at K=256), so a small palette does
   // not hold an SM to fewer blocks
-  const int chunks = (min(K, kTileK) + kChunk - 1) / kChunk;
-  const size_t smem = (size_t)chunks * (kChunk + 1) * sizeof(float4) +
+  const size_t smem = (size_t)hq::tile_float4s(K) * sizeof(float4) +
                       (K <= kHistK ? (size_t)K * sizeof(int) : 0);
   if (average) {
     assign_pop_kernel<true><<<grid, kThreads, smem, s>>>(

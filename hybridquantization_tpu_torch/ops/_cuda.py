@@ -37,8 +37,10 @@ _SIGNATURES = {
     # feats, pal, opp_pal, B, P, K, pop, bf16, average, packed, opp_out, counts,
     # idx_out, stream
     "hq_assign_pop": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    # feats, pal, P, K, idx_out, stream
-    "hq_assign_idx": [_P, _P, _I, _I, _P, _P],
+    # feats, pal, F, M, P, K, idx_out, stream
+    "hq_assign_idx": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # feats, weights, pal, F, M, P, K, blocks, tiles_per_block, partials, out, stream
+    "hq_lloyd_step": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # q, left, right, target, kh, kv, host_taps, taps, members, pop, H, W, wp0,
     # wp1, wp2, kind, bf16, rows_per_block, smem_bytes, n_partials, t7, partials,
     # sums, stream

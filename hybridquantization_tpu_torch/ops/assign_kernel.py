@@ -24,20 +24,28 @@ the Pallas kernel's:
   "highest", "f32x3"  fp32.
 
 B3 replaces `_assign_idx_kernel` of the same file (launched by
-`assign_idx`): the int32 nearest index per pixel for one palette, fp32,
-first index on ties, and nothing else. Every one-palette lookup of the
-engine runs it: the exact Lloyd polish (ops.assign.lloyd_step, once per
-step), the histogram Lloyd steps of the k-means seeding and polish
-(ops.kmeans) and quantize (ops.assign.nearest_palette).
+`assign_idx`) and the `segment_sum` JAX takes beside it in every Lloyd
+step (`ops/assign.py:175-176`, `ops/kmeans.py:104-107`). It runs a batch
+of problems in one grid, each a feature set (an image's pixels or
+histogram bins, optionally weighted) against one palette, with M palettes
+to a feature set (the members of one image): the axes JAX vmaps. Its index
+mode (`assign_idx`) gives the int32 nearest index per row, fp32, first
+index on ties; its Lloyd-step mode (`lloyd_step`) gives each palette
+moved to the weighted means of its rows (`centroid_update`'s float64 sums,
+reduced in the kernel in a fixed order). Every one-palette lookup of the
+engine runs it: the k-means seeding's and the polish's Lloyd steps
+(ops.kmeans, ops.assign), a bucket's or an image's in one launch a step,
+and quantize (ops.assign.nearest_palette), a bucket's in one launch.
 
-On a CUDA tensor `assign_opp_usage_pop` and `assign_idx` launch the
-hand-written kernels in `csrc/assign_pop.cu` and `csrc/assign_idx.cu`
-(built at first use, ops/_cuda.py) or raise; on a CPU tensor they run
-their `*_reference` versions. The TPU layout devices (pick_block, x4/c4
-packing with a bias row, lane folds, padded pixels) are not needed: the
-kernels tile K through shared memory and take the true P. B1 takes an
-optional leading image axis (the JAX batch engine vmaps the pallas_call
-over a bucket, `parallel/fast.py:191-196`); one launch serves the bucket.
+On a CUDA tensor `assign_opp_usage_pop`, `assign_idx` and `lloyd_step`
+launch the hand-written kernels in `csrc/assign_pop.cu` and
+`csrc/assign_idx.cu` (built at first use, ops/_cuda.py) or raise; on a CPU
+tensor they run their `*_reference` versions. The TPU layout devices
+(pick_block, x4/c4 packing with a bias row, lane folds, padded pixels) are
+not needed: the kernels tile K through shared memory and take the true P.
+B1 takes an optional leading image axis (the JAX batch engine vmaps the
+pallas_call over a bucket, `parallel/fast.py:191-196`); one launch serves
+the bucket.
 
 One deliberate difference from the Pallas kernels: there a NaN score makes
 the pixel's max NaN, so no entry of that palette wins (B3 then writes
@@ -272,60 +280,213 @@ def assign_opp_usage_pop(
 assign_opp_usage_pop.launches = 0
 
 
+def _problems(features, palettes, weights=None):
+    """Check B3's arguments and lift them to the batched layout: (features
+    (F, P, 3), palettes (F, M, K, 3), weights (F, P) or None, batched)."""
+    batched = features.dim() == 3
+    if features.dim() not in (2, 3) or features.shape[-1] != 3:
+        raise ValueError(f"features must be (P, 3) or (F, P, 3), got {tuple(features.shape)}")
+    want = 4 if batched else 2
+    if (
+        palettes.dim() != want
+        or palettes.shape[-1] != 3
+        or palettes.shape[-2] == 0
+        or (batched and palettes.shape[0] != features.shape[0])
+    ):
+        shape = "(F, M, K, 3)" if batched else "(K, 3)"
+        raise ValueError(f"palettes must be {shape} with K > 0, got {tuple(palettes.shape)}")
+    if weights is not None and weights.shape != features.shape[:-1]:
+        raise ValueError(f"weights must be {tuple(features.shape[:-1])}, got {tuple(weights.shape)}")
+    for name, t in (("features", features), ("palettes", palettes), ("weights", weights)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != features.device:
+            raise ValueError(f"{name} is on {t.device}, features on {features.device}")
+    if features.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {features.device}")
+    if not batched:
+        features, palettes = features[None], palettes[None, None]
+        weights = None if weights is None else weights[None]
+    return features, palettes, weights, batched
+
+
 def assign_idx_reference(
-    features: torch.Tensor, palette: torch.Tensor, *, block_size: int = DEFAULT_BLOCK
+    features: torch.Tensor, palettes: torch.Tensor, *, block_size: int = DEFAULT_BLOCK
 ) -> torch.Tensor:
-    """Plain torch version of the B3 kernel: (P,) int32 nearest index, first
-    index on ties, -1 where every score is NaN.
+    """Plain torch version of B3's index mode: (P,) int32 nearest index for
+    (P, 3) features and a (K, 3) palette, or (F, M, P) for (F, P, 3) and
+    (F, M, K, 3), each problem on its own; first index on ties, -1 where
+    every score is NaN.
 
     The port's one plain fp32 nearest-entry scan (B1's plain version runs
     it per member). It works on blocks of pixels, so the (block, K) score
     tile stays bounded: a 4K frame at K=256 would need 8.5 GB unblocked.
     """
-    return nearest_scan(features, palette, "f32x3", block_size)
+    if features.dim() == 3:
+        return torch.stack([
+            torch.stack([nearest_scan(f, p, "f32x3", block_size) for p in pals])
+            for f, pals in zip(features, palettes)
+        ])
+    return nearest_scan(features, palettes, "f32x3", block_size)
 
 
-def assign_idx(features: torch.Tensor, palette: torch.Tensor) -> torch.Tensor:
-    """Nearest-palette index of every pixel (the B3 kernel).
+def assign_idx(features: torch.Tensor, palettes: torch.Tensor) -> torch.Tensor:
+    """Nearest-palette index of every pixel (B3's index mode).
 
     Args:
-      features: (P, 3) f32 pixel features (sRGB or LAB).
-      palette: (K, 3) f32 palette in the same feature space.
+      features: (P, 3) f32 pixel features (sRGB or LAB), or (F, P, 3) for
+        F feature sets.
+      palettes: (K, 3) f32 palette in the same feature space, or
+        (F, M, K, 3): M palettes for each feature set.
 
     Returns:
-      (P,) int32: the first index of the highest score f . c_k - |c_k|^2 / 2;
-      -1 for a pixel whose scores are all NaN.
+      (P,) or (F, M, P) int32: the first index of the highest score
+      f . c_k - |c_k|^2 / 2; -1 for a pixel whose scores are all NaN. One
+      launch for all F x M problems.
     """
-    if features.dim() != 2 or features.shape[1] != 3:
-        raise ValueError(f"features must be (P, 3), got {tuple(features.shape)}")
-    if palette.dim() != 2 or palette.shape[1] != 3 or palette.shape[0] == 0:
-        raise ValueError(f"palette must be (K, 3) with K > 0, got {tuple(palette.shape)}")
-    for name, t in (("features", features), ("palette", palette)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if palette.device != features.device:
-        raise ValueError(f"palette is on {palette.device}, features on {features.device}")
-    if features.device.type == "cpu":
-        return assign_idx_reference(features, palette)
-    if features.device.type != "cuda":
-        raise ValueError(f"unsupported device {features.device}")
-    P, K = features.shape[0], palette.shape[0]
-    idx = torch.empty(P, dtype=torch.int32, device=features.device)
-    if P == 0:
-        return idx
-    features = features.contiguous()
-    palette = palette.contiguous()
-    lib = _cuda.library()
-    assign_idx.launches += 1
-    _cuda.check(
-        lib.hq_assign_idx(
-            features.data_ptr(), palette.data_ptr(), P, K, idx.data_ptr(),
-            _cuda.stream(features.device),
-        ),
-        "hq_assign_idx",
-    )
-    return idx
+    feats, pals, _, batched = _problems(features, palettes)
+    if feats.device.type == "cpu":
+        return assign_idx_reference(features, palettes)
+    F, M, K, _ = pals.shape
+    P = feats.shape[1]
+    idx = torch.empty((F, M, P), dtype=torch.int32, device=feats.device)
+    if P > 0:
+        feats, pals = feats.contiguous(), pals.contiguous()
+        lib = _cuda.library()
+        assign_idx.launches += 1
+        _cuda.check(
+            lib.hq_assign_idx(
+                feats.data_ptr(), pals.data_ptr(), F, M, P, K, idx.data_ptr(),
+                _cuda.stream(feats.device),
+            ),
+            "hq_assign_idx",
+        )
+    return idx if batched else idx[0, 0]
 
 
 #: launches of the CUDA kernel through this wrapper (not of the plain version)
 assign_idx.launches = 0
+
+#: rows a tile of the B3 kernel: 256 threads x 4 rows (csrc/assign_idx.cu, kRows)
+B3_TILE_ROWS = 1024
+#: most row blocks of one problem of a Lloyd step: two an SM of an H100 for
+#: a lone problem, so the float64 partials stay at most 264 x K x 32 bytes
+LLOYD_MAX_BLOCKS = 264
+#: most palette entries of the fused Lloyd step, whose float64 sums live in
+#: shared memory (csrc/assign_idx.cu, kLloydMaxK; 171 KB of the 227 KB a
+#: block may take); above it the step runs as the index mode plus the plain
+#: sums (lloyd_step.unfused_launches)
+LLOYD_MAX_K = 2048
+
+
+def lloyd_plan(P: int) -> tuple[int, int]:
+    """(row blocks, tiles a block) of one problem of P rows in Lloyd mode.
+    It depends on P alone, so a problem's sums, and its output, are the
+    same bits whatever else shares its launch."""
+    tiles = -(-P // B3_TILE_ROWS)
+    per_block = -(-tiles // LLOYD_MAX_BLOCKS)
+    return -(-tiles // per_block), per_block
+
+
+def centroid_update(
+    values: torch.Tensor,
+    idx: torch.Tensor,
+    palette: torch.Tensor,
+    weights: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Move each palette entry to the (weighted) mean of the rows assigned to
+    it; entries no row selected keep their color. Rows with idx -1 (no
+    winner) are dropped.
+
+    Sums and totals accumulate in float64 and the mean is cast to float32
+    at the end: on the card `index_add_` adds in no fixed order, and fp32
+    sums would round differently from run to run, fp32 counts stop being
+    exact above 2^24 rows per entry. In float64 both stay exact far beyond
+    any image (integer totals to 2^53), so only the final cast rounds.
+    The sums of B3's Lloyd-step mode (lloyd_step) are these, in a fixed order.
+    """
+    K = palette.shape[0]
+    keep = idx >= 0
+    seg = torch.where(keep, idx, 0).long()
+    w = keep.double() if weights is None else torch.where(keep, weights.double(), 0.0)
+    rows = torch.where(keep[:, None], values.double(), 0.0) * w[:, None]
+    sums = torch.zeros((K, values.shape[1]), dtype=torch.float64, device=values.device)
+    sums.index_add_(0, seg, rows)
+    tot = torch.zeros(K, dtype=torch.float64, device=values.device).index_add_(0, seg, w)
+    mean = (sums / tot.clamp_min(1.0)[:, None]).to(torch.float32)
+    return torch.where(tot[:, None] > 0, mean, palette)
+
+
+def lloyd_step_reference(
+    features: torch.Tensor, palettes: torch.Tensor, weights: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Plain torch version of B3's Lloyd-step mode: for each problem,
+    `centroid_update(features, assign_idx_reference(features, palette),
+    palette, weights)`, in lloyd_step's layouts."""
+    if features.dim() == 3:
+        ws = [None] * features.shape[0] if weights is None else weights
+        return torch.stack([
+            torch.stack([centroid_update(f, assign_idx_reference(f, p), p, w) for p in pals])
+            for f, pals, w in zip(features, palettes, ws)
+        ])
+    return centroid_update(features, assign_idx_reference(features, palettes), palettes, weights)
+
+
+def lloyd_step(
+    features: torch.Tensor, palettes: torch.Tensor, weights: torch.Tensor | None = None
+) -> torch.Tensor:
+    """One Lloyd (k-means) step of every problem (B3's Lloyd-step mode).
+
+    Args:
+      features: (P, 3) f32 rows, or (F, P, 3) for F feature sets.
+      palettes: (K, 3) f32, or (F, M, K, 3): M palettes for each feature set.
+      weights: optional (P,) or (F, P) f32 row weights (default 1).
+
+    Returns:
+      the palettes, shaped alike, with every entry moved to the weighted mean
+      of the rows whose nearest entry it is (assign_idx); entries with no
+      weight keep their colour, rows with no winner (all scores NaN) are
+      dropped. The sums are float64, in a fixed order: the same bits run to
+      run, and a problem's result does not depend on the others of the call.
+      One launch for all problems up to LLOYD_MAX_K entries; above it the
+      index mode and centroid_update, problem by problem.
+    """
+    feats, pals, w, batched = _problems(features, palettes, weights)
+    if feats.device.type == "cpu":
+        return lloyd_step_reference(features, palettes, weights)
+    F, M, K, _ = pals.shape
+    P = feats.shape[1]
+    if P == 0:
+        return palettes.clone()
+    feats, pals = feats.contiguous(), pals.contiguous()
+    if K > LLOYD_MAX_K:
+        lloyd_step.unfused_launches += 1
+        idx = assign_idx(feats, pals)
+        out = torch.stack([
+            torch.stack([centroid_update(f, i, p, wf) for i, p in zip(idxs, ps)])
+            for f, idxs, ps, wf in zip(feats, idx, pals, [None] * F if w is None else w)
+        ])
+        return out if batched else out[0, 0]
+    w = None if w is None else w.contiguous()
+    blocks, per_block = lloyd_plan(P)
+    partials = torch.empty((F, M, blocks, K, 4), dtype=torch.float64, device=feats.device)
+    out = torch.empty_like(pals)
+    lib = _cuda.library()
+    lloyd_step.launches += 1
+    _cuda.check(
+        lib.hq_lloyd_step(
+            feats.data_ptr(), None if w is None else w.data_ptr(), pals.data_ptr(), F, M, P, K,
+            blocks, per_block, partials.data_ptr(), out.data_ptr(), _cuda.stream(feats.device),
+        ),
+        "hq_lloyd_step",
+    )
+    return out if batched else out[0, 0]
+
+
+#: launches of the fused CUDA kernel through this wrapper (not of the plain
+#: version); unfused_launches: steps above LLOYD_MAX_K entries, run as the
+#: index mode (counted on assign_idx) plus centroid_update
+lloyd_step.launches = 0
+lloyd_step.unfused_launches = 0

@@ -21,7 +21,9 @@ image and seed, never on the bucket's composition or order, the property
 JAX's per-image keys give (`parallel/batch.py:215-222`). JAX draws its
 k-means starts from a second key, seeds + 0x9E3779B9 (`:234-244`); the
 port draws both from the one generator (ROADMAP C). The k-means seeding,
-the polish, quantize and the error images run once per image.
+the polish and quantize run over the bucket too, as JAX vmaps them
+(`parallel/batch.py:28-50`): one B3 launch a Lloyd step (all images x
+members) and one for quantize. The error images run once per image.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 
 from .. import colorspace as cs
 from ..config import QuantizationConfig
+from ..ops import assign as assign_ops
 from ..ops.kmeans import kmeans_init_palettes
 from ..pipeline import (
     HybridQuantizer,
@@ -63,14 +66,16 @@ def _seeds(seeds, B: int, cfg: QuantizationConfig) -> list[int]:
 
 
 def _init_colors(generators, images: torch.Tensor, cfg: QuantizationConfig):
-    """Each image's k-means starts from its own generator (init="kmeans"),
-    or None for the reference's random init."""
+    """(B, pop, K, 3) k-means starts (init="kmeans"), or None for the
+    reference's random init: one seeding for the bucket (one histogram
+    pass, one launch a Lloyd step), each image's starts drawn from its own
+    generator."""
     if cfg.init != "kmeans":
         return None
-    return torch.stack([
-        kmeans_init_palettes(g, im.reshape(-1, 3), cfg.swasa.num_colors, cfg.swasa.population)
-        for g, im in zip(generators, images)
-    ])
+    return kmeans_init_palettes(
+        generators, images.reshape(images.shape[0], -1, 3), cfg.swasa.num_colors,
+        cfg.swasa.population,
+    )
 
 
 def _anneal(state, fitness, cfg: QuantizationConfig, progress, chunk_size, batch_mean=np.mean, agree=bool):
@@ -161,14 +166,22 @@ class BatchQuantizer:
         return state.best_colors, info
 
     def quantize(self, images, palettes) -> torch.Tensor:
-        """(B, H, W, 3): each image through its own palette (B3)."""
+        """(B, H, W, 3): each image through its own palette, one B3 launch
+        for the bucket (HybridQuantizer.quantize without dither)."""
         images = self._images(images)
-        return torch.stack([self.engine.quantize(im, p) for im, p in zip(images, palettes)])
+        return assign_ops.quantize_in_space(
+            images, as_image(palettes, self.device), self.config.assignment_space,
+            self.engine._whitepoint,
+        )
 
     def polish(self, images, palettes, iters: int = 10) -> torch.Tensor:
-        """Per-image Lloyd refinement (HybridQuantizer.polish)."""
+        """Each image's Lloyd refinement (HybridQuantizer.polish), one B3
+        launch a step for the bucket."""
         images = self._images(images)
-        return torch.stack([self.engine.polish(im, p, iters) for im, p in zip(images, palettes)])
+        return assign_ops.polish_palette(
+            images.reshape(images.shape[0], -1, 3), as_image(palettes, self.device),
+            self.config.assignment_space, self.engine._whitepoint, iters,
+        )
 
     def error_images(self, originals, quantized):
         """((B,) mean S-CIELAB Delta-E, (B, H, W, 3) viz): the reference's

@@ -28,7 +28,7 @@ import torch
 
 from .. import colorspace as cs
 from ..config import QuantizationConfig
-from ..ops.assign import nearest_palette
+from ..ops.assign import nearest_palette, quantize_in_space
 from ..ops.conv import conv1d_symmetric, conv1d_valid
 from ..pipeline import _features
 from ..scielab.filters import ScielabFilters
@@ -41,7 +41,7 @@ from .population import line_totals, pack, shard_population
 
 def per_member(fn, palettes: torch.Tensor) -> torch.Tensor:
     """fn over a (..., K, 3) palette stack, one member at a time on the CPU
-    and in one call on the card (pipeline._per_image: torch's CPU pow rounds
+    and in one call on the card (ops.assign.per_image: torch's CPU pow rounds
     an element by its position in the tensor, so a member's numbers would
     depend on which members share its call, and a pop rank's slice would
     not be bit-equal to the whole population)."""
@@ -166,16 +166,10 @@ def quantize_rows(images: torch.Tensor, palettes: torch.Tensor, cfg: Quantizatio
     if H_pad > H:
         images = torch.cat([images, images[:, -1:].expand(-1, H_pad - H, -1, -1)], dim=1)
     strips = images[:, row_sharding(mesh, H_pad)]
-    wp = cs.WHITEPOINTS[cfg.scielab.whitepoint]
-    out = []
-    for strip, pal in zip(strips, palettes):
-        px = strip.reshape(-1, 3)
-        if cfg.assignment_space == "lab":
-            idx = nearest_palette(cs.srgb_to_lab(px, wp), cs.srgb_to_lab(pal, wp))
-        else:
-            idx = nearest_palette(px, pal)
-        out.append(pal[idx].reshape(strip.shape))
-    parts = mesh.all_gather(torch.stack(out), PIXEL_AXIS)  # (n, b, H_pad / n, W, 3)
+    out = quantize_in_space(
+        strips.contiguous(), palettes, cfg.assignment_space, cs.WHITEPOINTS[cfg.scielab.whitepoint]
+    )
+    parts = mesh.all_gather(out, PIXEL_AXIS)  # (n, b, H_pad / n, W, 3)
     return torch.cat(list(parts), dim=1)[:, :H]
 
 

@@ -71,25 +71,6 @@ def _features(pixels: torch.Tensor, cfg: QuantizationConfig, wp) -> torch.Tensor
     return cs.srgb_to_lab(pixels, wp) if cfg.assignment_space == "lab" else pixels
 
 
-def _per_image(fn, palettes: torch.Tensor) -> torch.Tensor:
-    """fn over a palette stack, image by image when it has an image axis on
-    the CPU.
-
-    There torch evaluates pow with SIMD code for the aligned elements of a
-    tensor and with libm for its tail, which round differently, so an
-    element's last bit depends on its position; mapping each image's
-    (pop, K, 3) stack on its own keeps an image's numbers independent of its
-    bucket (converted in one call, the bucket's fitness differs from an
-    image's own in the last bit:
-    tests/test_torch_batch.py::test_batched_fitness_is_bit_equal_to_single_images).
-    A CUDA kernel computes every element alike, so on the card the bucket
-    converts in one call (tests/test_torch_cuda.py holds it bit-equal there).
-    """
-    if palettes.dim() == 4 and palettes.device.type == "cpu":
-        return torch.stack([fn(p) for p in palettes])
-    return fn(palettes)
-
-
 def _make_context(
     image_hwc, filters: ScielabFilters, cfg: QuantizationConfig, device="cpu"
 ) -> dict:
@@ -171,8 +152,8 @@ def make_population_fitness(ctx: dict, cfg: QuantizationConfig):
     def pop_fitness(palettes: torch.Tensor):
         opp, counts = assign_opp_usage_pop(
             ctx["assign_pixels"],
-            _per_image(lambda p: _features(p, cfg, wp), palettes),
-            _per_image(cs.srgb_to_opp, palettes),
+            assign_ops.per_image(lambda p: _features(p, cfg, wp), palettes, palettes.dim() == 4),
+            assign_ops.per_image(cs.srgb_to_opp, palettes, palettes.dim() == 4),
             precision=cfg.precision,
             tie_mode=cfg.tie_mode,
         )
@@ -337,13 +318,9 @@ class HybridQuantizer:
         pal = self._as_image(palette)
         if dither > 0.0:
             image = assign_ops.dither_perturbation(image, pal, dither)
-        if self.config.assignment_space == "lab":
-            wp = self._whitepoint
-            idx = assign_ops.nearest_palette(
-                cs.srgb_to_lab(image, wp).reshape(-1, 3), cs.srgb_to_lab(pal, wp)
-            )
-            return pal[idx].reshape(image.shape)
-        return assign_ops.quantize_image(image, pal)
+        return assign_ops.quantize_in_space(
+            image, pal, self.config.assignment_space, self._whitepoint
+        )
 
     def error_image(self, original_hwc, quantized_hwc):
         """(mean S-CIELAB Delta-E, (H, W, 3) visualization).

@@ -36,6 +36,7 @@ pytestmark = pytest.mark.cuda
 NEAR_TIE = 1e-5  # |score gap| (f64) within which f32 rounding may pick either entry
 # B3: near ties are relative, LAB scores reach ~1e4 where one f32 ulp is ~1e-3
 NEAR_TIE_REL = 1e-6
+POLISH_ATOL = 1e-5  # B3 Lloyd step against plain sums on its winners: f64 sums in another order
 SUM_RTOL = 1e-5  # B2: f32 filters in another FMA order; sums reduced in f64 vs f32
 # split-bf16 scores: the tensor cores' f32 accumulation against the plain
 # version's sequential sum of the same 12 exact products (measured <= 4.8e-7 at 4K)
@@ -165,12 +166,118 @@ def test_b3_kernel_ties_and_nan(cuda_device):
 def test_lloyd_polish_on_the_card_matches_cpu(cuda_device, space):
     px = torch.as_tensor(natural_image(96, 128, seed=4)).reshape(-1, 3)
     pal = _rand((8, 3), 10, "cpu")
-    before = ak.assign_idx.launches
+    before = (ak.lloyd_step.launches, ak.assign_idx.launches)
     got = assign_ops.polish_palette(px.to(cuda_device), pal.to(cuda_device), space, cs.WHITEPOINT_D65, 10, "exact")
     torch.cuda.synchronize()
-    assert ak.assign_idx.launches == before + 10
+    assert (ak.lloyd_step.launches, ak.assign_idx.launches) == (before[0] + 10, before[1])
     want = assign_ops.polish_palette(px, pal, space, cs.WHITEPOINT_D65, 10, "exact")
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+def _check_b3_batch(feats, pals):
+    """B3's index mode on (F, P, 3) x (F, M, K, 3) against its plain version,
+    problem by problem under the relative near-tie rule; (F, M, P) indices."""
+    before = ak.assign_idx.launches
+    idx = ak.assign_idx(feats, pals)
+    torch.cuda.synchronize()
+    assert ak.assign_idx.launches == before + 1
+    F, M = pals.shape[:2]
+    assert idx.dtype == torch.int32 and idx.shape == (F, M, feats.shape[1])
+    for f in range(F):
+        for m in range(M):
+            want = ak.assign_idx_reference(feats[f], pals[f, m])
+            diff = idx[f, m] != want
+            if diff.any():
+                (i,) = torch.nonzero(diff, as_tuple=True)
+                x = feats[f, i].double()
+                ca, cb = pals[f, m, idx[f, m, i].long()].double(), pals[f, m, want[i].long()].double()
+                sa = (x * ca).sum(-1) - 0.5 * (ca * ca).sum(-1)
+                sb = (x * cb).sum(-1) - 0.5 * (cb * cb).sum(-1)
+                scale = torch.maximum(sa.abs(), sb.abs()).clamp_min(1.0)
+                assert bool(((sa - sb).abs() <= NEAR_TIE_REL * scale).all())
+    return idx
+
+
+def _check_lloyd(feats, pals, weights):
+    """B3's Lloyd-step mode on (F, P, 3) x (F, M, K, 3): one launch, within
+    POLISH_ATOL of the plain sums (centroid_update) on the index mode's
+    winners, which the plain version's equal off the near-tie class."""
+    idx = _check_b3_batch(feats, pals)
+    before = ak.lloyd_step.launches
+    got = ak.lloyd_step(feats, pals, weights)
+    torch.cuda.synchronize()
+    assert ak.lloyd_step.launches == before + 1
+    assert got.shape == pals.shape and got.dtype == torch.float32
+    for f in range(feats.shape[0]):
+        w = None if weights is None else weights[f]
+        for m in range(pals.shape[1]):
+            want = ak.centroid_update(feats[f], idx[f, m], pals[f, m], w)
+            torch.testing.assert_close(got[f, m], want, rtol=0, atol=POLISH_ATOL)
+            if torch.equal(idx[f, m], ak.assign_idx_reference(feats[f], pals[f, m])):
+                torch.testing.assert_close(
+                    got[f, m], ak.lloyd_step_reference(feats[f], pals[f, m], w), rtol=0, atol=POLISH_ATOL
+                )
+    return got, idx
+
+
+@pytest.mark.parametrize("P", [1, 1023, 32_775])
+@pytest.mark.parametrize("K", [7, 256, 1500])
+def test_b3_both_modes_at_ragged_rows(cuda_device, P, K):
+    feats = _rand((2, P, 3), 50 + K, cuda_device)
+    pals = _rand((2, 3, K, 3), 51 + K, cuda_device)
+    weights = torch.floor(_rand((2, P), 52, cuda_device) * 4)
+    _check_lloyd(feats, pals, weights)
+    _check_lloyd(feats, pals, None)
+
+
+@pytest.mark.parametrize("space", ["srgb", "lab"])
+def test_b3_lloyd_ties_nan_and_empty_entries(cuda_device, space):
+    K = 1500  # two palette tiles of 1024 entries
+    img = torch.as_tensor(natural_image(150, 190, seed=7), device=cuda_device).reshape(1, -1, 3)
+    pals = _rand((1, 2, K, 3), 13, cuda_device)
+    for a, b in ((15, 16), (31, 47), (1023, 1024), (5, 1400)):  # across chunk and tile edges
+        pals[0, :, a] = img[0, 100 * a % img.shape[1]]
+        pals[0, :, b] = pals[0, :, a]
+    pals[0, :, 700] = 30.0  # nearest to no pixel
+    img[0, [3, 1024, 9000]] = float("nan")  # no score is a number: dropped
+    if space == "lab":
+        img, pals = cs.srgb_to_lab(img).contiguous(), cs.srgb_to_lab(pals).contiguous()
+    got, idx = _check_lloyd(img, pals, None)
+    assert bool((idx[0, :, [3, 1024, 9000]] == -1).all())
+    for a, b in ((15, 16), (31, 47), (1023, 1024), (5, 1400)):
+        assert bool((idx == a).any()) and not bool((idx == b).any())
+        assert torch.equal(got[0, :, b], pals[0, :, b])
+    assert torch.equal(got[0, :, 700], pals[0, :, 700])
+
+
+def test_b3_batched_launches_equal_single_ones_and_repeat(cuda_device):
+    F, M, K, P = 3, 4, 256, 40_000
+    feats = _rand((F, P, 3), 60, cuda_device)
+    pals = _rand((F, M, K, 3), 61, cuda_device)
+    weights = torch.floor(_rand((F, P), 62, cuda_device) * 5)
+    idx = ak.assign_idx(feats, pals)
+    steps = [ak.lloyd_step(feats, pals, weights) for _ in range(10)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(s, steps[0]) for s in steps[1:])
+    for f in range(F):
+        for m in range(M):
+            assert torch.equal(ak.assign_idx(feats[f], pals[f, m]), idx[f, m])
+            assert torch.equal(ak.lloyd_step(feats[f], pals[f, m], weights[f]), steps[0][f, m])
+
+
+def test_b3_lloyd_large_k_route(cuda_device):
+    feats = _rand((1, 20_000, 3), 70, cuda_device)
+    for K, fused in ((ak.LLOYD_MAX_K, True), (ak.LLOYD_MAX_K + 1, False)):
+        pals = _rand((1, 2, K, 3), 71, cuda_device)
+        before = (ak.lloyd_step.launches, ak.lloyd_step.unfused_launches, ak.assign_idx.launches)
+        got = ak.lloyd_step(feats, pals)
+        torch.cuda.synchronize()
+        after = (ak.lloyd_step.launches, ak.lloyd_step.unfused_launches, ak.assign_idx.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == ((1, 0, 0) if fused else (0, 1, 1))
+        idx = ak.assign_idx(feats, pals)
+        for m in range(2):
+            want = ak.centroid_update(feats[0], idx[0, m], pals[0, m])
+            torch.testing.assert_close(got[0, m], want, rtol=0, atol=POLISH_ATOL)
 
 
 @pytest.mark.parametrize("kind", ["CIE76", "CIE94", "CIEDE2000"])
