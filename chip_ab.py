@@ -19,6 +19,15 @@ inputs from seed 0, K=256:
                                         histograms of random 1080p images
   seeding_step_image_4x32768            the same for one image's 4 members
 
+and the probe kernels at 4K/K256/pop4 on the probe scripts' seed-0 inputs
+(chip_smoke.py's phase_probes draws them alike), through the wrappers'
+calls, which a parent checkout takes as well:
+
+  t3_dotf32                              split_rowmax (the control, timed first)
+  t1_vpu, t1_vpu_fused, t2_grp8          probe_kloop (T1, T2)
+  t4_current, t4_avg                     split_assign through kexp_assign
+  t7_run128, t7_run256                   split_assign per run (KC = 64)
+
 A checkout whose B3 has no batched Lloyd step (`assign_kernel.lloyd_step`)
 runs the problems one at a time through ops.kmeans.lloyd_steps_weighted,
 as its engine did. Exits non-zero without a CUDA device.
@@ -45,6 +54,39 @@ def ms(fn, n: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def probes(torch, dev) -> dict:
+    """Milliseconds a call of the probe kernels on the probe scripts' inputs."""
+    import numpy as np
+
+    from hybridquantization_tpu_torch.ops import probe_kernels as pk
+    from hybridquantization_tpu_torch.tools import H, K, POP, W, kexp_assign, minidot_probe, pack_pixels
+
+    P = H * W
+    rng = np.random.default_rng(0)  # vpu_assign_exp and kexp_assign draw alike
+    feats = torch.as_tensor(rng.random((P, 3), dtype=np.float32), device=dev)
+    pals = torch.as_tensor(rng.random((8, POP, K, 3)).astype(np.float32), device=dev)
+    x4 = pack_pixels(feats)
+    c4, o4 = pk.pack_palette(pals[0], pals[0])
+    rng = np.random.default_rng(0)  # minidot_probe
+    xm = torch.as_tensor(rng.random((4, P), dtype=np.float32), device=dev)
+    rng.random((8, POP, 4, K), dtype=np.float32)  # the dense candidates, not used here
+    nr = minidot_probe.BLOCK // 128
+    cm = {128: rng.random((8, POP, nr, 4, minidot_probe.KC), dtype=np.float32)[:1],
+          256: rng.random((8, POP, nr // 2, 4, minidot_probe.KC), dtype=np.float32)[:1]}
+    cr = {run: minidot_probe.per_run(torch.as_tensor(a, device=dev), P, run)[0] for run, a in cm.items()}
+    calls = {  # the control first: what runs before a timing can move it
+        "t3_dotf32": lambda: pk.split_rowmax(x4, c4),
+        "t1_vpu": lambda: pk.kloop_assign(x4, c4, o4, slots=1, unroll=8),
+        "t1_vpu_fused": lambda: pk.kloop_assign(x4, c4, o4, slots=1, fused=True, unroll=8),
+        "t2_grp8": lambda: pk.kloop_assign(x4, c4, o4, slots=8, unroll=1),
+        "t4_current": lambda: kexp_assign.run_variant("current", x4, c4, o4),
+        "t4_avg": lambda: kexp_assign.run_variant("avg", x4, c4, o4),
+        "t7_run128": lambda: pk.split_assign(xm, cr[128], cr[128], run=128, opp_parts=2),
+        "t7_run256": lambda: pk.split_assign(xm, cr[256], cr[256], run=256, opp_parts=2),
+    }
+    return {name: ms(fn, 20) for name, fn in calls.items()}
 
 
 def main(root: str) -> int:
@@ -92,6 +134,9 @@ def main(root: str) -> int:
             return [km.lloyd_steps_weighted(counts[0], centers[0], starts[0, m], 1) for m in range(4)]
     out["seeding_step_bucket_64x32768"] = ms(bucket, 5)
     out["seeding_step_image_4x32768"] = ms(image, 10)
+    del px, images, hists, counts, centers, starts
+    torch.cuda.empty_cache()
+    out.update(probes(torch, dev))
     print(json.dumps(out))
     return 0
 

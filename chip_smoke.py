@@ -56,7 +56,8 @@ The command writes only those four images and their error images: PNG
 encoding of all 64 (and 64 error images) would spend tens of seconds of
 host time in PIL that measure nothing of the port.
 
-Then the probes' kernels (T1-T8: `csrc/probe_kloop.cu`, `csrc/split_scores.cu`)
+Then the probes' kernels (T1-T8: `csrc/probe_kloop.cu`, `csrc/split_scores.cu`,
+`csrc/split_assign.cu`)
 at 4K/K256/pop4 on the probe scripts' own inputs, every variant against its
 plain version (phase_probes), and three more paths, each with the counts
 set to 0 just before and read just after: the probe scripts' entry points
@@ -1454,7 +1455,7 @@ def probe_kernel_rows(probes: dict, probe_paths: dict, by_path) -> list[dict]:
                  "T7": "minidot_probe", "T8": "minidot_probe"}
     rows = []
     for name_, source in (("probe_kloop", "csrc/probe_kloop.cu"), ("split_rowmax", "csrc/split_scores.cu"),
-                          ("split_assign", "csrc/split_scores.cu")):
+                          ("split_assign", "csrc/split_assign.cu")):
         common = {"name": name_, "route": "cuda", "source": f"hybridquantization_tpu_torch/{source}"}
         variants = []
         for v in probes[name_]:

@@ -7,206 +7,277 @@
 //   s = (x0 c0 + x1 c1) + (x2 c2 + cb)
 // (cb the bias row -|c|^2/2 of the packed palette), every product and sum
 // rounded on its own (__fmul_rn/__fadd_rn: nvcc would otherwise contract to
-// FMAs, and the plain torch version rounds each operation), scanned with a
-// strict `>` from a best of -1e30, so NaN and scores at or below -1e30 never
-// win; then the winner's opponent colour (0 without a winner) and int32
-// counts per entry. The probes' schedules become template parameters:
-//  - SLOTS=1 (T1: pixels on lanes, palette entry broadcast): one thread per
-//    pixel scans K and tracks the winner's colour by selects, as T1 does;
-//  - SLOTS=8 (T2: eight sublane slots): eight lanes of a warp share a pixel,
-//    lane j scanning entries j, j + 8, ...; the eight merge with
-//    __shfl_xor_sync by max score, then min index (vpu_assign_exp.py:100-107),
-//    and the winner's colour is read after the merge;
-//  - FUSED (T1's `fused`): every member's compare chain shares one pass over
-//    k (registers for at most kMaxFused members);
-//  - UNROLL: entries per step of the scan, unrolled by hand (T1's `unroll`).
-// Palettes are staged in shared memory in tiles, as B1 stages them (no K
-// ceiling); counts go through a shared int32 histogram, then atomics.
+// FMAs, and the plain torch version rounds each operation), as a strict `>`
+// scan in index order from a best of -1e30, so NaN and scores at or below
+// -1e30 never win; then the winner's opponent colour (0 without a winner)
+// and int32 counts per entry.
 //
-// What bounds it on the H100: fp32 instruction rate, as B1: 3 multiplies,
-// 3 adds, a compare and the selects per (member, pixel, entry), against 28
-// bytes of pixel traffic per pixel. It is a probe: it measures these
-// schedules against B1 (csrc/assign_pop.cu, which fuses the score into 3
-// FMAs), not a replacement of it.
+// What bounds it on the H100: fp32 instruction issue. With the separate
+// rounding the function defines, a score is at least 3 FMUL + 3 FADD and
+// its max 1 FMNMX: 4 x 8.3 M x 256 scores x 7 instructions over 132 SMs x
+// 128 lanes x 1.98 GHz is 1.78 ms at 4K/K256/pop4, the floor of any kernel
+// of this function. (The 0.761 ms bound in PERF.md counts 6 FLOPs a score
+// at the FMA peak, as B1's does; half of it is out of reach by definition.)
+//
+// The design, B1's max-then-rescan scan (nearest_scan.cuh) with this
+// function's score and starting best:
+//  - a thread holds kPx = 4 pixels, so one broadcast float4 load of an
+//    entry (c0, c1, c2, cb) from shared memory feeds four scores;
+//  - each chunk of 16 entries is scanned with fmaxf alone (a NaN drops
+//    out); after the chunk one compare and select records a chunk maximum
+//    strictly above the running best and the chunk's number; at the end of
+//    a staged tile, a pixel whose best moved in it rescans its winning
+//    chunk with the same rounded operations (so the same bits) for the
+//    first entry equal to the best;
+//  - no colour in the loop: the winner's opponent colour is read from
+//    device memory once, after the scan;
+//  - a persistent grid (about as many blocks as fit on the SMs at once)
+//    strides over tiles of pixels. When every member's packed palette fits
+//    (K up to the plan's tile of KLOOP_TILE entries, and the shared bytes
+//    it allows), a block stages them once and keeps them; else it stages
+//    tiles of KLOOP_TILE entries per pixel tile. Each 16-entry chunk is
+//    padded to 17 float4s, so the rescans of different chunks by the
+//    threads of a warp spread over the banks; a tile's last chunks are
+//    filled with entries that score -inf;
+//  - counts go to a shared int32 histogram, flushed once per block.
+// The probes' schedules are template parameters and give the same bits:
+//  - SLOTS = 1 (T1: pixels on lanes): one lane scans every entry;
+//  - SLOTS = 8 (T2: eight sublane slots): eight lanes share four pixels,
+//    lane j scanning entries j, j + 8, ... in chunks of 16 of its own
+//    entries; at a tile's end the eight rescan together only the chunks of
+//    lanes at the group's best (rescan_group); they merge with
+//    __shfl_xor_sync by max score, then min index (vpu_assign_exp.py:100-107);
+//  - FUSED (T1's `fused`): every member's chains share one pass over k
+//    (NP = 2, 4 or 8 chains; members beyond pop are staged as -inf and
+//    never written);
+//  - UNROLL: entries of a chunk per step of the scan, unrolled by hand;
+//  - threads: the block size.
+// The wrapper (ops/probe_kernels.kloop_plan) chooses the grid, the tile and
+// whether the palettes stay resident, and sizes the shared memory.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stddef.h>
+
+#include "persistent_grid.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;  // vpu_assign_exp.py:93, :154
-constexpr int kMaxFused = 8;
-constexpr int kTileEntries = 1024;  // (c, o) float4 pairs per block: 32 KB
-constexpr int kHistInts = 4096;     // pop * K up to this counts in shared memory
+constexpr int kPx = 4;          // pixels a thread (a slot group)
+constexpr int kChunk = 16;      // entries a max-then-rescan chunk (of one lane)
 
-__device__ __forceinline__ float score(float x0, float x1, float x2, float4 c) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x0, c.x), __fmul_rn(x1, c.y)),
-                   __fadd_rn(__fmul_rn(x2, c.z), c.w));
+__device__ __forceinline__ float score(const float (&x)[3], float4 c) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x[0], c.x), __fmul_rn(x[1], c.y)),
+                   __fadd_rn(__fmul_rn(x[2], c.z), c.w));
 }
 
-struct Chain {
-  float best, b0, b1, b2;
-  int idx;
-};
+// Shared slot of entry j of a staged tile: chunks of 16 padded to 17.
+__device__ __forceinline__ int slot(int j) { return j / kChunk * (kChunk + 1) + j % kChunk; }
 
-__device__ __forceinline__ void init(Chain& ch) {
-  ch.best = kNeg;
-  ch.b0 = ch.b1 = ch.b2 = 0.0f;
-  ch.idx = -1;
-}
-
-__device__ __forceinline__ void step(Chain& ch, float s, float4 o, int k) {
-  if (s > ch.best) {
-    ch.best = s;
-    ch.b0 = o.x;
-    ch.b1 = o.y;
-    ch.b2 = o.z;
-    ch.idx = k;
-  }
-}
-
-// Stage entries [k0, k0 + n) of member p as (c0, c1, c2, cb) and (o0, o1,
-// o2, 0) float4s from the (pop, 4, K) arrays. Callers synchronise around it.
-__device__ __forceinline__ void stage(const float* c4, const float* o4, int K, int p, int k0,
-                                      int n, float4* cs, float4* os) {
-  const float* c = c4 + (size_t)p * 4 * K + k0;
-  const float* o = o4 + (size_t)p * 4 * K + k0;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    cs[j] = make_float4(c[j], c[K + j], c[2 * K + j], c[3 * K + j]);
-    os[j] = make_float4(o[j], o[K + j], o[2 * K + j], 0.0f);
-  }
-}
-
-// One member's chain over a staged tile of n entries starting at entry k0:
-// this lane's entries lane, lane + SLOTS, ..., UNROLL per step.
-template <int kSlots, int kUnroll>
-__device__ __forceinline__ void scan(Chain& ch, float x0, float x1, float x2, const float4* cs,
-                                     const float4* os, int k0, int n, int lane) {
-  const int steps = (n - lane + kSlots - 1) / kSlots;  // entries of this lane
-  int s = 0;
-  for (; s + kUnroll <= steps; s += kUnroll) {
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = (s + u) * kSlots + lane;
-      step(ch, score(x0, x1, x2, cs[j]), os[j], k0 + j);
-    }
-  }
-  for (; s < steps; ++s) {
-    const int j = s * kSlots + lane;
-    step(ch, score(x0, x1, x2, cs[j]), os[j], k0 + j);
-  }
-}
-
-// Merge the SLOTS lanes of a pixel (max score, then min index) and return
-// the winner's colour; every lane of the warp takes part.
+// Slot offset of step j of a lane's chunk from the chunk's base (c x
+// kSlots x 17 + lane): entry kSlots x j + lane of the chunk's kSlots x 16.
 template <int kSlots>
-__device__ __forceinline__ void finish(Chain& ch, const float* o4, int K, int p) {
-  if constexpr (kSlots > 1) {
+__device__ __forceinline__ int step_slot(int j) {
+  return (kSlots * j) / kChunk * (kChunk + 1) + (kSlots * j) % kChunk;
+}
+
+// Stage entries [k0, k0 + n) of member p as (c0, c1, c2, cb) float4s into a
+// tile of `padded` entries, entries past n (and every entry of a member p
+// >= pop) scoring -inf. Callers synchronise around it.
+__device__ __forceinline__ void stage(const float* c4, int K, int pop, int p, int k0, int n,
+                                      int padded, float4* tile) {
+  const float* c = c4 + (size_t)p * 4 * K + k0;
+  for (int j = threadIdx.x; j < padded; j += blockDim.x) {
+    tile[slot(j)] = p < pop && j < n ? make_float4(c[j], c[K + j], c[2 * K + j], c[3 * K + j])
+                                     : make_float4(0.0f, 0.0f, 0.0f, -INFINITY);
+  }
+}
+
+// SLOTS > 1: the rescans of a pixel's group at the end of a tile. Only a
+// lane whose best moved in the tile and equals the group's best can still
+// win (bests only grow), so only those are resolved: the group's lanes
+// rescan such a lane's chunk together, two steps each (16 = 2 x 8), and a
+// ballot gives its first step equal to the best. A lane below the group's
+// best keeps its chunk number unresolved; it never wins the merge.
+template <int kSlots>
+__device__ __forceinline__ void rescan_group(const float4* tl, const float (&x)[3], float best,
+                                             int& win, int k0, int c0, int lane) {
+  static_assert(kChunk == 2 * kSlots, "two rescan steps a lane");
+  constexpr unsigned kFull = 0xffffffffu;
+  float top = best;
 #pragma unroll
-    for (int off = 1; off < kSlots; off <<= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, ch.best, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, ch.idx, off);
-      if (ob > ch.best || (ob == ch.best && oi < ch.idx)) {
-        ch.best = ob;
-        ch.idx = oi;
-      }
-    }
-    ch.b0 = ch.b1 = ch.b2 = 0.0f;
-    if (ch.idx >= 0) {
-      const float* o = o4 + (size_t)p * 4 * K + ch.idx;
-      ch.b0 = o[0];
-      ch.b1 = o[K];
-      ch.b2 = o[2 * K];
+  for (int off = 1; off < kSlots; off <<= 1) top = fmaxf(top, __shfl_xor_sync(kFull, top, off));
+  const int base = (threadIdx.x & 31) & ~(kSlots - 1);  // the group's first lane in the warp
+  bool todo = win >= c0 && best == top;
+  for (unsigned pending = __ballot_sync(kFull, todo); pending != 0u;
+       pending = __ballot_sync(kFull, todo)) {
+    const unsigned mine = (pending >> base) & ((1u << kSlots) - 1u);
+    const int L = mine ? __ffs(mine) - 1 : 0;
+    const int cc = __shfl_sync(kFull, win, base + L) - c0;
+    const float bl = __shfl_sync(kFull, best, base + L);
+    const float4* e = tl + (mine ? cc : 0) * kSlots * (kChunk + 1) + L;
+    const bool h0 = mine && score(x, e[step_slot<kSlots>(lane)]) == bl;
+    const bool h1 = mine && score(x, e[step_slot<kSlots>(lane + kSlots)]) == bl;
+    const unsigned b0 = (__ballot_sync(kFull, h0) >> base) & ((1u << kSlots) - 1u);
+    const unsigned b1 = (__ballot_sync(kFull, h1) >> base) & ((1u << kSlots) - 1u);
+    const int j = b0 ? __ffs(b0) - 1 : b1 ? __ffs(b1) - 1 + kSlots : kChunk - 1;
+    if (mine && lane == L) {
+      win = -(k0 + (cc * kChunk + j) * kSlots + L) - 2;
+      todo = false;
     }
   }
 }
 
-template <int kSlots, bool kFused, int kUnroll>
+template <int kSlots, int kUnroll, int kNP>
 __global__ void kloop_kernel(const float* __restrict__ x, const float* __restrict__ c4,
                              const float* __restrict__ o4, int P, int K, int pop, int tile,
-                             bool shared_hist, float* __restrict__ opp, int* __restrict__ counts) {
+                             int tile_f4, int staged, bool resident, bool shared_hist,
+                             float* __restrict__ opp, int* __restrict__ counts) {
+  // dynamic shared memory: `staged` members' tiles of tile_f4 float4s, then hist
   extern __shared__ float4 smem[];
-  const int tile_all = kFused ? tile * pop : tile;
-  float4* cs = smem;
-  float4* os = smem + tile_all;
-  int* hist = reinterpret_cast<int*>(smem + 2 * tile_all);
+  float4* pal = smem;
+  int* hist = reinterpret_cast<int*>(smem + (size_t)staged * tile_f4);
+  constexpr int kStep = kChunk * kSlots;  // entries of one chunk of every lane
 
-  const int per_block = blockDim.x / kSlots;
-  const int lane = threadIdx.x % kSlots;
-  const size_t pix = (size_t)blockIdx.x * per_block + threadIdx.x / kSlots;
-  const bool active = pix < (size_t)P;
-  const float x0 = active ? x[pix] : 0.0f;
-  const float x1 = active ? x[(size_t)P + pix] : 0.0f;
-  const float x2 = active ? x[2 * (size_t)P + pix] : 0.0f;
+  const int groups = blockDim.x / kSlots;  // pixel groups (kSlots lanes each)
+  const int lane = threadIdx.x % kSlots, gi = threadIdx.x / kSlots;
+  const int block_px = groups * kPx;
+
   if (shared_hist) {
     for (int k = threadIdx.x; k < pop * K; k += blockDim.x) hist[k] = 0;
   }
+  if (resident) {
+    const int padded = (K + kStep - 1) / kStep * kStep;
+    for (int p = 0; p < staged; ++p) stage(c4, K, pop, p, 0, K, padded, pal + (size_t)p * tile_f4);
+  }
+  __syncthreads();
 
-  auto emit = [&](const Chain& ch, int p) {
-    if (!active || lane != 0) return;
-    float* out = opp + (size_t)p * 3 * P;
-    out[pix] = ch.b0;
-    out[(size_t)P + pix] = ch.b1;
-    out[2 * (size_t)P + pix] = ch.b2;
-    if (ch.idx >= 0) {
-      if (shared_hist) {
-        atomicAdd(&hist[p * K + ch.idx], 1);
-      } else {
-        atomicAdd(&counts[(size_t)p * K + ch.idx], 1);
-      }
+  const size_t n_tiles = ((size_t)P + block_px - 1) / block_px;
+  for (size_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    size_t pix[kPx];
+    float f[kPx][3];
+#pragma unroll
+    for (int r = 0; r < kPx; ++r) {
+      pix[r] = t * block_px + (size_t)r * groups + gi;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) f[r][d] = pix[r] < (size_t)P ? x[(size_t)d * P + pix[r]] : 0.0f;
     }
-  };
-
-  if (!kFused) {
-    for (int p = 0; p < pop; ++p) {
-      Chain ch;
-      init(ch);
+    for (int p0 = 0; p0 < pop; p0 += kNP) {
+      // win: the chunk number of a best that moved in the current tile, or
+      // after its rescan -(entry + 2); -1 while there is no winner
+      float best[kNP][kPx];
+      int win[kNP][kPx];
+#pragma unroll
+      for (int q = 0; q < kNP; ++q) {
+#pragma unroll
+        for (int r = 0; r < kPx; ++r) {
+          best[q][r] = kNeg;
+          win[q][r] = -1;
+        }
+      }
       for (int k0 = 0; k0 < K; k0 += tile) {
         const int n = min(tile, K - k0);
-        __syncthreads();  // the previous tile is consumed; hist is zeroed
-        stage(c4, o4, K, p, k0, n, cs, os);
-        __syncthreads();
-        scan<kSlots, kUnroll>(ch, x0, x1, x2, cs, os, k0, n, lane);
-      }
-      finish<kSlots>(ch, o4, K, p);
-      emit(ch, p);
-    }
-  } else {
-    Chain ch[kMaxFused];
+        const int chunks = (n + kStep - 1) / kStep;
+        const int c0 = k0 / kStep;  // global number of this tile's first chunk
+        const float4* tl = pal + (resident ? (size_t)p0 * tile_f4 : 0);
+        if (!resident) {
+          __syncthreads();  // the previous tile is consumed
 #pragma unroll
-    for (int p = 0; p < kMaxFused; ++p) init(ch[p]);
-    for (int k0 = 0; k0 < K; k0 += tile) {
-      const int n = min(tile, K - k0);
-      __syncthreads();
-      for (int p = 0; p < pop; ++p) stage(c4, o4, K, p, k0, n, cs + p * tile, os + p * tile);
-      __syncthreads();
-      const int steps = (n - lane + kSlots - 1) / kSlots;
-      int s = 0;
-      for (; s + kUnroll <= steps; s += kUnroll) {
+          for (int q = 0; q < kNP; ++q) {
+            stage(c4, K, pop, p0 + q, k0, n, chunks * kStep, pal + (size_t)q * tile_f4);
+          }
+          __syncthreads();
+        }
+        // the max pass: fmaxf over each chunk, a strict `>` per chunk
+#pragma unroll 1
+        for (int c = 0; c < chunks; ++c) {
+          const float4* e = tl + c * kSlots * (kChunk + 1) + lane;
+          float m[kNP][kPx];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int j = (s + u) * kSlots + lane;
+          for (int q = 0; q < kNP; ++q) {
 #pragma unroll
-          for (int p = 0; p < kMaxFused; ++p) {
-            if (p < pop) {
-              step(ch[p], score(x0, x1, x2, cs[p * tile + j]), os[p * tile + j], k0 + j);
+            for (int r = 0; r < kPx; ++r) m[q][r] = -INFINITY;
+          }
+#pragma unroll 1
+          for (int j0 = 0; j0 < kChunk; j0 += kUnroll) {
+            // j0 is even (kUnroll is) or u is 0: the slot splits into a
+            // run-time base and a compile-time offset
+            const float4* ej = e + step_slot<kSlots>(j0);
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              const int off = step_slot<kSlots>(u);
+#pragma unroll
+              for (int q = 0; q < kNP; ++q) {
+                const float4 v = ej[(size_t)q * tile_f4 + off];
+#pragma unroll
+                for (int r = 0; r < kPx; ++r) m[q][r] = fmaxf(m[q][r], score(f[r], v));
+              }
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < kNP; ++q) {
+#pragma unroll
+            for (int r = 0; r < kPx; ++r) {
+              if (m[q][r] > best[q][r]) {
+                best[q][r] = m[q][r];
+                win[q][r] = c0 + c;
+              }
+            }
+          }
+        }
+        // a best that moved in this tile: rescan its chunk for the first equal entry
+#pragma unroll
+        for (int q = 0; q < kNP; ++q) {
+#pragma unroll
+          for (int r = 0; r < kPx; ++r) {
+            if constexpr (kSlots == 1) {
+              if (win[q][r] >= c0) {
+                const int cc = win[q][r] - c0;
+                const float4* e = tl + (size_t)q * tile_f4 + cc * (kChunk + 1);
+                int j = 0;
+                while (j < kChunk - 1 && !(score(f[r], e[j]) == best[q][r])) ++j;
+                win[q][r] = -(k0 + cc * kChunk + j) - 2;
+              }
+            } else {
+              rescan_group<kSlots>(tl + (size_t)q * tile_f4, f[r], best[q][r], win[q][r], k0, c0,
+                                   lane);
             }
           }
         }
       }
-      for (; s < steps; ++s) {
-        const int j = s * kSlots + lane;
 #pragma unroll
-        for (int p = 0; p < kMaxFused; ++p) {
-          if (p < pop) step(ch[p], score(x0, x1, x2, cs[p * tile + j]), os[p * tile + j], k0 + j);
+      for (int q = 0; q < kNP; ++q) {
+        const int p = p0 + q;
+#pragma unroll
+        for (int r = 0; r < kPx; ++r) {
+          float b = best[q][r];
+          int i = -win[q][r] - 2;  // -1 without a winner
+          if constexpr (kSlots > 1) {
+#pragma unroll
+            for (int off = 1; off < kSlots; off <<= 1) {
+              const float ob = __shfl_xor_sync(0xffffffffu, b, off);
+              const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+              if (ob > b || (ob == b && oi < i)) {
+                b = ob;
+                i = oi;
+              }
+            }
+          }
+          if (p >= pop || lane != 0 || pix[r] >= (size_t)P) continue;
+          float* out = opp + (size_t)p * 3 * P + pix[r];
+          const float* o = o4 + (size_t)p * 4 * K;
+          out[0] = i >= 0 ? o[i] : 0.0f;
+          out[P] = i >= 0 ? o[K + i] : 0.0f;
+          out[2 * (size_t)P] = i >= 0 ? o[2 * K + i] : 0.0f;
+          if (i >= 0) {
+            if (shared_hist) {
+              atomicAdd(&hist[p * K + i], 1);
+            } else {
+              atomicAdd(&counts[(size_t)p * K + i], 1);
+            }
+          }
         }
-      }
-    }
-#pragma unroll
-    for (int p = 0; p < kMaxFused; ++p) {
-      if (p < pop) {
-        finish<kSlots>(ch[p], o4, K, p);
-        emit(ch[p], p);
       }
     }
   }
@@ -220,55 +291,78 @@ __global__ void kloop_kernel(const float* __restrict__ x, const float* __restric
   }
 }
 
-template <int kSlots, bool kFused, int kUnroll>
+template <int kSlots, int kUnroll, int kNP>
 int launch(const float* x, const float* c4, const float* o4, int P, int K, int pop, int threads,
-           float* opp, int* counts, cudaStream_t s) {
-  const int k8 = (K + 7) / 8 * 8;
-  int tile = kFused ? max(8, kTileEntries / pop / 8 * 8) : kTileEntries;
-  tile = min(tile, k8);
-  const bool shared_hist = pop * K <= kHistInts;
-  const size_t smem = 2 * (size_t)tile * (kFused ? pop : 1) * sizeof(float4) +
-                      (shared_hist ? (size_t)pop * K * sizeof(int) : 0);
-  const int per_block = threads / kSlots;
-  const unsigned blocks = (unsigned)(((size_t)P + per_block - 1) / per_block);
-  kloop_kernel<kSlots, kFused, kUnroll><<<blocks, threads, smem, s>>>(
-      x, c4, o4, P, K, pop, tile, shared_hist, opp, counts);
+           int blocks, int tile, int tile_f4, int staged, int resident, int shared_hist,
+           int smem, float* opp, int* counts, cudaStream_t s) {
+  auto kernel = kloop_kernel<kSlots, kUnroll, kNP>;
+  const int e = hq_persistent_grid(kernel, threads, smem, &blocks);
+  if (e != 0) return e;
+  kernel<<<blocks, threads, smem, s>>>(x, c4, o4, P, K, pop, tile, tile_f4, staged, resident != 0,
+                                       shared_hist != 0, opp, counts);
   return (int)cudaGetLastError();
 }
 
-template <int kSlots, bool kFused>
+template <int kSlots, int kNP>
 int by_unroll(int unroll, const float* x, const float* c4, const float* o4, int P, int K, int pop,
-              int threads, float* opp, int* counts, cudaStream_t s) {
+              int threads, int blocks, int tile, int tile_f4, int staged, int resident,
+              int shared_hist, int smem, float* opp, int* counts, cudaStream_t s) {
+#define HQ_LAUNCH(U)                                                                              \
+  launch<kSlots, U, kNP>(x, c4, o4, P, K, pop, threads, blocks, tile, tile_f4, staged, resident, \
+                         shared_hist, smem, opp, counts, s)
   switch (unroll) {
-    case 1: return launch<kSlots, kFused, 1>(x, c4, o4, P, K, pop, threads, opp, counts, s);
-    case 4: return launch<kSlots, kFused, 4>(x, c4, o4, P, K, pop, threads, opp, counts, s);
-    case 8: return launch<kSlots, kFused, 8>(x, c4, o4, P, K, pop, threads, opp, counts, s);
-    case 16: return launch<kSlots, kFused, 16>(x, c4, o4, P, K, pop, threads, opp, counts, s);
+    case 1: return HQ_LAUNCH(1);
+    case 4: return HQ_LAUNCH(4);
+    case 8: return HQ_LAUNCH(8);
+    case 16: return HQ_LAUNCH(16);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef HQ_LAUNCH
+}
+
+template <int kSlots>
+int by_width(int width, int unroll, const float* x, const float* c4, const float* o4, int P, int K,
+             int pop, int threads, int blocks, int tile, int tile_f4, int staged, int resident,
+             int shared_hist, int smem, float* opp, int* counts, cudaStream_t s) {
+#define HQ_WIDTH(NP)                                                                        \
+  by_unroll<kSlots, NP>(unroll, x, c4, o4, P, K, pop, threads, blocks, tile, tile_f4, staged, \
+                        resident, shared_hist, smem, opp, counts, s)
+  switch (width) {
+    case 1: return HQ_WIDTH(1);
+    case 2: return HQ_WIDTH(2);
+    case 4: return HQ_WIDTH(4);
+    case 8: return HQ_WIDTH(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef HQ_WIDTH
 }
 
 }  // namespace
 
 // x (>= 3 rows, row stride P), c4 and o4 (pop, 4, K), all f32 contiguous;
 // opp (pop, 3, P) f32; counts (pop, K) int32, zeroed by the caller. slots 1
-// or 8; fused 0 or 1 (at most 8 members); unroll 1, 4, 8 or 16; threads a
-// multiple of 32. Returns the cudaGetLastError() of the launch.
+// or 8; width the members of one pass over k (1, or 2, 4 or 8 fused);
+// unroll 1, 4, 8 or 16; threads a multiple of 32 (and of slots). The plan
+// (ops/probe_kernels.kloop_plan): blocks of the persistent grid, entries of
+// a staged tile and its float4s, members staged, whether they stay resident,
+// whether counts go through shared memory, and the shared bytes. Returns the
+// cudaGetLastError() of the launch.
 extern "C" int hq_probe_kloop(const float* x, const float* c4, const float* o4, int P, int K,
-                              int pop, int slots, int fused, int unroll, int threads, float* opp,
-                              int* counts, void* stream) {
-  if (P <= 0 || K <= 0 || pop <= 0 || threads < 32 || threads > 1024 || threads % 32 != 0 ||
-      (fused && pop > kMaxFused)) {
+                              int pop, int slots, int width, int unroll, int threads, int blocks,
+                              int tile, int tile_f4, int staged, int resident, int shared_hist,
+                              int smem, float* opp, int* counts, void* stream) {
+  if (P <= 0 || K <= 0 || pop <= 0 || blocks <= 0 || threads < 32 || threads > 1024 ||
+      threads % 32 != 0 || tile <= 0 || tile_f4 <= 0 || staged < width) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   if (slots == 1) {
-    return fused ? by_unroll<1, true>(unroll, x, c4, o4, P, K, pop, threads, opp, counts, s)
-                 : by_unroll<1, false>(unroll, x, c4, o4, P, K, pop, threads, opp, counts, s);
+    return by_width<1>(width, unroll, x, c4, o4, P, K, pop, threads, blocks, tile, tile_f4, staged,
+                       resident, shared_hist, smem, opp, counts, s);
   }
   if (slots == 8) {
-    return fused ? by_unroll<8, true>(unroll, x, c4, o4, P, K, pop, threads, opp, counts, s)
-                 : by_unroll<8, false>(unroll, x, c4, o4, P, K, pop, threads, opp, counts, s);
+    return by_width<8>(width, unroll, x, c4, o4, P, K, pop, threads, blocks, tile, tile_f4, staged,
+                       resident, shared_hist, smem, opp, counts, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -20,7 +20,8 @@ plain torch version that the wrapper runs on a CPU tensor:
                  (_mini_full_kernel), T8 (_mini_full2_kernel): the first
                  index of that score's max (or every maximum, T4's `avg`),
                  the winner's colour from 3 exact or 2 bf16 parts, counts.
-                 Both split kernels are `csrc/split_scores.cu`.
+                 `csrc/split_assign.cu` (wgmma); split_rowmax is
+                 `csrc/split_scores.cu` (mma.sync).
 
 The split-bf16 score is the probes' defining arithmetic: each operand is
 split into bf16 hi = bf16(a) and lo = bf16(a - hi), and the 12-deep
@@ -56,6 +57,98 @@ OPP_PARTS = (2, 3)
 DEFAULT_THREADS = 256
 # the split kernels stage every member's candidate fragments in shared memory,
 MAX_SPLIT_SMEM = 192 * 1024  # with at most 32 KB of counts: under the 227 KB a block may use
+SMEM_PER_BLOCK = 232448  # the most dynamic shared memory an H100 block may use (227 KB)
+SMEM_PER_SM = 233472  # an SM's shared memory for its blocks (228 KB), 1 KB reserved a block
+SMS = 132  # an H100 SXM's SMs: the plans' default when no card is asked
+
+# the k-loop's layout (csrc/probe_kloop.cu): pixels a thread (a slot group),
+# entries a max-then-rescan chunk (16 float4s padded to 17 in shared memory),
+# entries a streamed tile, the most bytes of resident palettes, shared counts
+KLOOP_PX = 4
+KLOOP_CHUNK = 16
+KLOOP_TILE = 1024
+KLOOP_RESIDENT_BYTES = 128 * 1024
+KLOOP_HIST_INTS = 4096
+FUSED_WIDTHS = (1, 2, 4, 8)  # chains of one pass over k (members rounded up)
+
+# split_assign's layout (csrc/split_assign.cu): a warpgroup's pixels, its
+# threads, at most two warpgroups a block (128 registers a thread), the
+# candidates of one product (wgmma N), per-run candidate sets in flight,
+# shared counts
+SPLIT_ROWS = 64
+SPLIT_WARPGROUP = 128
+SPLIT_MAX_WARPGROUPS = 2
+SPLIT_NBS = (64, 128)  # candidates of one product: 64 up to 64 candidates, else 128
+SPLIT_STAGES = 3
+SPLIT_HIST_INTS = 8192
+
+
+def _sms(dev: torch.device | None) -> int:
+    if dev is None or dev.type != "cuda":
+        return SMS
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def kloop_plan(P: int, K: int, pop: int, *, slots: int = 1, fused: bool = False,
+               threads: int = DEFAULT_THREADS, sms: int = SMS) -> dict:
+    """The k-loop kernel's launch: members a pass over k (`width`), the
+    staged tile (entries, float4s with chunk padding), members staged and
+    whether they stay resident for the whole launch, shared counts, shared
+    bytes, pixels a block tile, and the persistent grid (`blocks`, striding
+    over `tiles`). Block b takes tiles b, b + blocks, ...; in tile t, pixel
+    group g (of `slots` lanes) holds pixels t x block_px + r x groups + g,
+    r < KLOOP_PX."""
+    width = next(w for w in FUSED_WIDTHS if w >= pop) if fused else 1
+    step = KLOOP_CHUNK * slots  # entries of one chunk of every lane
+
+    def float4s(n):
+        return -(-n // step) * step // KLOOP_CHUNK * (KLOOP_CHUNK + 1)
+
+    staged_all = -(-pop // width) * width
+    resident = K <= KLOOP_TILE and staged_all * float4s(K) * 16 <= KLOOP_RESIDENT_BYTES
+    tile = K if resident else min(K, KLOOP_TILE)
+    staged = staged_all if resident else width
+    tile_f4 = float4s(tile)
+    shared_hist = pop * K <= KLOOP_HIST_INTS
+    smem = staged * tile_f4 * 16 + (4 * pop * K if shared_hist else 0)
+    groups = threads // slots
+    block_px = groups * KLOOP_PX
+    tiles = -(-P // block_px)
+    per_sm = max(1, min(2048 // threads, SMEM_PER_SM // (smem + 1024)))
+    return dict(width=width, tile=tile, tile_f4=tile_f4, staged=staged, resident=resident,
+                shared_hist=shared_hist, smem=smem, groups=groups, block_px=block_px, tiles=tiles,
+                blocks=max(1, min(tiles, sms * per_sm)))
+
+
+def split_assign_plan(P: int, Kc: int, pop: int, *, run: int | None = None, average: bool = False,
+                      threads: int = DEFAULT_THREADS, sms: int = SMS) -> dict:
+    """split_assign's launch: the candidates of one product (`nb`), the
+    candidates padded to whole products (`kpad`, `chunks` products a member), warpgroups a block,
+    shared counts, shared bytes (B: one a block, or with `run` one a
+    warpgroup beside its ring of SPLIT_STAGES raw sets; average mode's hit
+    masks; each warpgroup's merged rows; counts: the kernel's order), and
+    the persistent grid (an upper
+    bound: the kernel caps it at what fits on the SMs at once). Warpgroup w
+    of block b is warpgroup number b x wgs + w of the grid's blocks x wgs;
+    dense, it takes the 64-pixel tiles of its number, then + blocks x wgs,
+    ...; with `run`, the runs of its number, then + blocks x wgs, ..., each
+    run's tiles in turn. `smem` may exceed SMEM_PER_BLOCK: the wrapper then
+    refuses the shape."""
+    nb = SPLIT_NBS[0] if Kc <= SPLIT_NBS[0] else SPLIT_NBS[1]
+    kpad = -(-Kc // nb) * nb
+    chunks = kpad // nb
+    wgs = min(SPLIT_MAX_WARPGROUPS, max(1, threads // SPLIT_WARPGROUP))
+    shared_hist = pop * Kc <= SPLIT_HIST_INTS
+    b = pop * kpad * 32
+    if run:
+        b = wgs * (b + SPLIT_STAGES * pop * 4 * Kc * 4)
+    masks = wgs * pop * SPLIT_ROWS * chunks * 16 if average else 0
+    rows = wgs * (pop * SPLIT_ROWS * (6 if average else 1) + 8) * 4  # merged rows, a spare slot
+    smem = b + masks + rows + (4 * pop * Kc if shared_hist else 0)
+    work = -(-P // run) if run else -(-P // SPLIT_ROWS)  # runs or tiles
+    per_sm = max(1, min(2048 // (wgs * SPLIT_WARPGROUP), SMEM_PER_SM // (smem + 1024)))
+    return dict(nb=nb, kpad=kpad, chunks=chunks, wgs=wgs, shared_hist=shared_hist, smem=smem, work=work,
+                blocks=max(1, min(-(-work // wgs), sms * per_sm)))
 
 
 def pack_palette(pal_feats: torch.Tensor, opp_palette: torch.Tensor):
@@ -187,7 +280,8 @@ def kloop_assign(x, c4, o4, *, slots: int = 1, fused: bool = False, unroll: int 
         warp share a pixel, lane j scanning entries j, j + 8, ..., T2).
       fused: every member's compare chain in one pass over k (T1's `fused`).
       unroll: 1, 4, 8 or 16 entries per step of the scan.
-      threads: threads per CUDA block.
+      threads: threads per CUDA block (a variant whose registers do not
+        allow that many raises at launch).
 
     Returns:
       (opp (pop, 3, P) f32, counts (pop, K) int32). Schedule arguments
@@ -213,12 +307,15 @@ def kloop_assign(x, c4, o4, *, slots: int = 1, fused: bool = False, unroll: int 
     counts = torch.zeros((pop, K), dtype=torch.int32, device=x.device)
     if P == 0:
         return opp, counts
+    plan = kloop_plan(P, K, pop, slots=slots, fused=fused, threads=threads, sms=_sms(x.device))
     lib = _cuda.library()
     kloop_assign.launches += 1
     _cuda.check(
         lib.hq_probe_kloop(
-            x.data_ptr(), c4.data_ptr(), o4.data_ptr(), P, K, pop, slots, int(fused), unroll,
-            threads, opp.data_ptr(), counts.data_ptr(), _cuda.stream(x.device),
+            x.data_ptr(), c4.data_ptr(), o4.data_ptr(), P, K, pop, slots, plan["width"], unroll,
+            threads, plan["blocks"], plan["tile"], plan["tile_f4"], plan["staged"],
+            int(plan["resident"]), int(plan["shared_hist"]), plan["smem"], opp.data_ptr(),
+            counts.data_ptr(), _cuda.stream(x.device),
         ),
         "hq_probe_kloop",
     )
@@ -308,6 +405,16 @@ def split_rowmax(x4, c, *, run=None, out_bf16=False, threads=DEFAULT_THREADS):
 split_rowmax.launches = 0
 
 
+def _assign_plan(P, kc, pop, run, tie_mode, threads, sms=SMS) -> dict:
+    """split_assign_plan, or ValueError where its shared memory exceeds a block's."""
+    plan = split_assign_plan(P, kc, pop, run=run, average=tie_mode == "average", threads=threads,
+                             sms=sms)
+    if plan["smem"] > SMEM_PER_BLOCK:
+        raise ValueError(f"pop {pop} x {kc} candidates exceed split_assign's shared memory "
+                         f"({plan['smem']} bytes, tie_mode {tie_mode!r}, run {run})")
+    return plan
+
+
 def split_assign_reference(x4, c, o, *, run=None, tie_mode="first", opp_parts=3,
                            return_index=False, block_size=DEFAULT_BLOCK):
     """Plain version of `split_assign`: (opp (pop, 3, P), counts (pop, Kc)
@@ -369,7 +476,8 @@ def split_assign(x4, c, o, *, run=None, tie_mode="first", opp_parts=3, return_in
         are hits.
       opp_parts: 3 (the exact gather, T4) or 2 (hi + lo, T7 and T8).
       return_index: also return the int32 first index of the max, (pop, P).
-      threads: threads per CUDA block.
+      threads: threads per CUDA block, in whole warpgroups of 128 (rounded
+        down, at least one, at most two).
 
     Returns:
       (opp (pop, 3, P) f32, counts (pop, Kc) int32[, idx]).
@@ -378,12 +486,13 @@ def split_assign(x4, c, o, *, run=None, tie_mode="first", opp_parts=3, return_in
     if tie_mode not in TIE_MODES or opp_parts not in OPP_PARTS:
         raise ValueError(f"tie_mode {tie_mode!r} (options {TIE_MODES}), opp_parts {opp_parts} "
                          f"(options {OPP_PARTS})")
+    pop, P, kc = c.shape[0], x4.shape[1], c.shape[-1]
+    plan = _assign_plan(P, kc, pop, run, tie_mode, threads, _sms(x4.device))
     kw = dict(run=run, tie_mode=tie_mode, opp_parts=opp_parts, return_index=return_index)
     if x4.device.type == "cpu":
         return split_assign_reference(x4, c, o, **kw)
     if x4.device.type != "cuda":
         raise ValueError(f"unsupported device {x4.device}")
-    pop, P, kc = c.shape[0], x4.shape[1], c.shape[-1]
     x4, c, o = x4.contiguous(), c.contiguous(), o.contiguous()
     dev = x4.device
     opp = torch.empty((pop, 3, P), dtype=torch.float32, device=dev)
@@ -397,7 +506,8 @@ def split_assign(x4, c, o, *, run=None, tie_mode="first", opp_parts=3, return_in
     _cuda.check(
         lib.hq_split_assign(
             x4.data_ptr(), c.data_ptr(), o.data_ptr(), P, kc, pop, run or 0,
-            int(tie_mode == "average"), opp_parts, threads, opp.data_ptr(), counts.data_ptr(),
+            int(tie_mode == "average"), opp_parts, plan["nb"], plan["wgs"], plan["blocks"],
+            int(plan["shared_hist"]), plan["smem"], opp.data_ptr(), counts.data_ptr(),
             idx.data_ptr() if idx is not None else None, _cuda.stream(dev),
         ),
         "hq_split_assign",

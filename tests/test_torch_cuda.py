@@ -537,6 +537,7 @@ def _check_split_assign(x4, c, o, run, tie_mode, parts):
         m, i = torch.nonzero(differ, as_tuple=True)
         cands = c[m] if run is None else c[m, i // run]
         s = pk._split_scores(x4[:, i][:, :, None], cands)[:, 0]  # (n_diff, Kc) plain scores
+        s = torch.where(torch.isnan(s), float("-inf"), s)  # a NaN score never wins
         top, second = torch.topk(s, 2, dim=-1).values.unbind(-1)
         near = NEAR_TIE_REL * top.abs().clamp_min(1.0)
         assert bool(((top - second) <= near).all())
@@ -819,3 +820,120 @@ def test_b1_nan_entries_ragged_pixels_and_palette_sizes(cuda_device, K, precisio
         assert counts[0, K // 2] == 0 and counts[2, 0] == 0
     total = counts.sum(-1)
     assert bool((total == feats.shape[0] - 1).all() if tie_mode == "first" else (total >= feats.shape[0] - 1).all())
+
+
+def _kloop_hazard_inputs(P, K, pop, seed, dev):
+    """Probe inputs with the k-loop's hazards: exact duplicates on both sides
+    of a 16-entry chunk, of T2's 128-entry chunk row and of the 1024-entry
+    staged tile; NaN entries; entries scoring exactly -1e30 or below; and a
+    member whose every score is at or below -1e30 (no winner: colour 0, no
+    count)."""
+    x4, c4, o4 = _probe_inputs(P, K, pop, seed, dev)
+    pairs = [(a, b) for a, b in ((15, 16), (127, 128), (3, 20), (1023, 1024), (7, 2100)) if b < K]
+    for a, b in pairs:
+        c4[:, :, b] = c4[:, :, a]
+        o4[:, :, b] = o4[:, :, a] + 1.0  # a wrong winner shows in the colour
+    for a, b in pairs[:3]:
+        x4[:3, a] = c4[0, :3, a]  # each first copy wins some pixel
+    if K > 2:
+        c4[0, :, K - 2] = float("nan")
+        c4[pop - 1, :3, K - 1] = 0.0
+        c4[pop - 1, 3, K - 1] = pk.NEG  # scores exactly -1e30: never wins
+    if pop > 1:
+        c4[1, :3] = 0.0
+        c4[1, 3] = 2 * pk.NEG  # every score of member 1 below -1e30
+    return x4, c4, o4, pairs
+
+
+@pytest.mark.parametrize("K", [3, 77, 300, 3000])
+@pytest.mark.parametrize("pop", [1, 8])
+def test_kloop_hazards_bit_equal_for_every_schedule(cuda_device, K, pop):
+    """T1/T2 at K about the 16-entry chunk, T2's 128-entry chunk row, the
+    1024-entry tile (3000: streamed in three tiles), pop 1 and pop 8 (fused
+    in one pass of 8 chains): every slots/fused/unroll/threads schedule gives
+    the plain version's colours and counts bit for bit."""
+    P = 5000 + K
+    x4, c4, o4, pairs = _kloop_hazard_inputs(P, K, pop, 7 * K + pop, cuda_device)
+    want = pk.kloop_assign_reference(x4, c4, o4)
+    if pop > 1:
+        assert bool((want[0][1] == 0).all()) and int(want[1][1].sum()) == 0
+    for a, b in pairs:
+        assert int(want[1][0, b]) == 0
+    before, runs = pk.kloop_assign.launches, 0
+    for slots in pk.SLOTS:
+        for fused in (False, True):
+            for unroll in pk.UNROLLS:
+                for threads in (32, 96, 256):
+                    opp, counts = pk.kloop_assign(x4, c4, o4, slots=slots, fused=fused, unroll=unroll,
+                                                  threads=threads)
+                    torch.cuda.synchronize()
+                    runs += 1
+                    key = (slots, fused, unroll, threads)
+                    assert torch.equal(opp, want[0]) and torch.equal(counts, want[1]), key
+    assert pk.kloop_assign.launches == before + runs
+
+
+@pytest.mark.parametrize("P", [1, 100, 5000])
+def test_kloop_fewer_pixels_than_one_wave(cuda_device, P):
+    x4, c4, o4 = _probe_inputs(P, 256, 4, P, cuda_device)
+    want = pk.kloop_assign_reference(x4, c4, o4)
+    for slots in pk.SLOTS:
+        for fused, threads in ((False, 512), (False, 256), (True, 256)):
+            got = pk.kloop_assign(x4, c4, o4, slots=slots, fused=fused, threads=threads)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (slots, fused)
+
+
+@pytest.mark.parametrize("K", [3, 77, 256, 300])
+@pytest.mark.parametrize("tie_mode,parts", [("first", 3), ("average", 3), ("first", 2)])
+def test_split_assign_duplicates_nan_and_ragged_k(cuda_device, K, tie_mode, parts):
+    """T4 at K not a multiple of 8, 16 or 64 (the last wgmma chunk masked),
+    with exact duplicate candidates on both sides of an 8-candidate group and
+    of the 128-candidate chunk, and NaN candidates: a duplicate never wins in
+    first mode; averaging, the copies' hits are equal (the same held values
+    tie exactly); NaN never wins."""
+    P = 20000 + K
+    x4, c4, o4 = _probe_inputs(P, K, 4, 11 * K, cuda_device)
+    pairs = [(a, b) for a, b in ((7, 8), (1, 2), (127, 128), (5, 260)) if b < K]
+    for a, b in pairs:
+        c4[:, :, b] = c4[:, :, a]
+        o4[:, :, b] = o4[:, :, a] + 1.0
+    for a, _ in pairs:
+        x4[:3, a] = c4[0, :3, a]
+    nan_k = 0 if any(K - 1 in pair for pair in pairs) else K - 1
+    c4[2, 0, nan_k] = float("nan")
+    counts, idx = _check_split_assign(x4, c4, o4, None, tie_mode, parts)
+    assert int(counts[2, nan_k]) == 0 and not bool((idx[2] == nan_k).any())
+    for a, b in pairs:
+        if tie_mode == "first":
+            assert int(counts[0, b]) == 0
+        else:
+            assert torch.equal(counts[:, a], counts[:, b])
+    total = counts.sum(1)
+    assert bool((total == P).all()) if tie_mode == "first" else bool((total >= P).all())
+
+
+@pytest.mark.parametrize("P", [1, 100, 1000])
+@pytest.mark.parametrize("tie_mode", ["first", "average"])
+def test_split_assign_fewer_pixels_than_one_wave(cuda_device, P, tie_mode):
+    x4, c4, o4 = _probe_inputs(P, 256, 4, 5 * P, cuda_device)
+    counts, _ = _check_split_assign(x4, c4, o4, None, tie_mode, 3)
+    assert bool((counts.sum(1) == P).all()) if tie_mode == "first" else bool((counts.sum(1) >= P).all())
+
+
+@pytest.mark.parametrize("run", [100, 128, 256])
+@pytest.mark.parametrize("tie_mode", ["first", "average"])
+def test_split_assign_per_run_ragged_runs_and_duplicates(cuda_device, run, tie_mode):
+    """Per-run candidates through the cp.async ring: run = 100 (tiles of 64
+    and 36 pixels), P not a multiple of the run, duplicates in every run's
+    candidates (averaging: equal hits)."""
+    P = 30011
+    g = torch.Generator().manual_seed(run)
+    x4 = torch.rand((4, P), generator=g).to(cuda_device)
+    c = torch.rand((4, -(-P // run), 4, 64), generator=g).to(cuda_device)
+    c[:, :, :, 40] = c[:, :, :, 9]
+    counts, idx = _check_split_assign(x4, c, c, run, tie_mode, 2)
+    if tie_mode == "first":
+        assert bool((counts.sum(1) == P).all()) and int(counts[:, 40].sum()) == 0
+    else:
+        assert torch.equal(counts[:, 9], counts[:, 40])
