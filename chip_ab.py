@@ -24,6 +24,10 @@ and the probe kernels at 4K/K256/pop4 on the probe scripts' seed-0 inputs
 calls, which a parent checkout takes as well:
 
   t3_dotf32                              split_rowmax (the control, timed first)
+  t3_dotbf16                             split_rowmax, bf16 output
+  t4_dotmax                              split_rowmax through kexp_assign
+  t5_dense                               split_rowmax, minidot's dense candidates
+  t6_mini128, t6_mini256                 split_rowmax per run (KC = 64)
   t1_vpu, t1_vpu_fused, t2_grp8          probe_kloop (T1, T2)
   t4_current, t4_avg                     split_assign through kexp_assign
   t7_run128, t7_run256                   split_assign per run (KC = 64)
@@ -71,13 +75,18 @@ def probes(torch, dev) -> dict:
     c4, o4 = pk.pack_palette(pals[0], pals[0])
     rng = np.random.default_rng(0)  # minidot_probe
     xm = torch.as_tensor(rng.random((4, P), dtype=np.float32), device=dev)
-    rng.random((8, POP, 4, K), dtype=np.float32)  # the dense candidates, not used here
+    cd = torch.as_tensor(rng.random((8, POP, 4, K), dtype=np.float32)[0], device=dev)
     nr = minidot_probe.BLOCK // 128
     cm = {128: rng.random((8, POP, nr, 4, minidot_probe.KC), dtype=np.float32)[:1],
           256: rng.random((8, POP, nr // 2, 4, minidot_probe.KC), dtype=np.float32)[:1]}
     cr = {run: minidot_probe.per_run(torch.as_tensor(a, device=dev), P, run)[0] for run, a in cm.items()}
     calls = {  # the control first: what runs before a timing can move it
         "t3_dotf32": lambda: pk.split_rowmax(x4, c4),
+        "t3_dotbf16": lambda: pk.split_rowmax(x4, c4, out_bf16=True),
+        "t4_dotmax": lambda: kexp_assign.run_variant("dotmax", x4, c4, o4),
+        "t5_dense": lambda: pk.split_rowmax(xm, cd),
+        "t6_mini128": lambda: pk.split_rowmax(xm, cr[128], run=128),
+        "t6_mini256": lambda: pk.split_rowmax(xm, cr[256], run=256),
         "t1_vpu": lambda: pk.kloop_assign(x4, c4, o4, slots=1, unroll=8),
         "t1_vpu_fused": lambda: pk.kloop_assign(x4, c4, o4, slots=1, fused=True, unroll=8),
         "t2_grp8": lambda: pk.kloop_assign(x4, c4, o4, slots=8, unroll=1),

@@ -56,8 +56,8 @@ The command writes only those four images and their error images: PNG
 encoding of all 64 (and 64 error images) would spend tens of seconds of
 host time in PIL that measure nothing of the port.
 
-Then the probes' kernels (T1-T8: `csrc/probe_kloop.cu`, `csrc/split_scores.cu`,
-`csrc/split_assign.cu`)
+Then the probes' kernels (T1-T8: `csrc/probe_kloop.cu`, and
+`csrc/split_assign.cu` in its assignment and max modes)
 at 4K/K256/pop4 on the probe scripts' own inputs, every variant against its
 plain version (phase_probes), and three more paths, each with the counts
 set to 0 just before and read just after: the probe scripts' entry points
@@ -1184,11 +1184,14 @@ def phase_e2e(img, dev) -> tuple[dict, float]:
 def split_bound(P: int, kc: int, pop: int, nbytes: float, f32_per_score: int) -> dict:
     """The split kernels: 12 bf16 multiply-adds per (pixel, candidate,
     member) at the bf16 tensor-core peak, and the max (1) or compare and
-    select (2) per score at the fp32 peak; the larger of the two is the
-    operations term (`ops_term` says which), against the bytes."""
+    select (2) fp32 instructions per score, each one issue slot of a lane:
+    PEAK_F32 / 2 instructions a second (PEAK_F32 counts an FMA as two
+    operations; this takes FMNMX and the compare at the FMA pipe's rate).
+    The larger of the two is the operations term (`ops_term` says which),
+    against the bytes."""
     scores = float(P) * kc * pop
     tc_ms = 2.0 * 12 * scores / PEAK_BF16 * 1e3
-    f32_ms = f32_per_score * scores / PEAK_F32 * 1e3
+    f32_ms = f32_per_score * scores / (PEAK_F32 / 2) * 1e3
     out = bound(0.0, nbytes)
     if max(tc_ms, f32_ms) > out["bound_ms"]:
         out.update(bound_ms=max(tc_ms, f32_ms), bound_by="operations")
@@ -1238,7 +1241,8 @@ def phase_probes(dev) -> dict:
     synchronized call): the k-loop bit for bit (0 colour and count
     mismatches); the split row max within SPLIT_RTOL, or with bf16 outputs
     the rounding of a value within SPLIT_RTOL of the plain f32 maximum, the
-    other way from plain on at most BF16_OFF_SHARE of them; the split
+    other way from plain on at most BF16_OFF_SHARE of them, and bit for bit
+    the rounding of the kernel's own f32 maxima; the split
     assignment's index, colour and count mismatches only in the relative
     near-tie class, counts summing to P per member (hits at least P in
     average mode). A variant that is the same launch as another carries its
@@ -1319,7 +1323,12 @@ def phase_probes(dev) -> dict:
                 fail(f"split_rowmax {label}: {outside} maxima are no rounding of a value within "
                      f"{SPLIT_RTOL} of the plain f32 maximum; {off} of {got.numel()} round the other "
                      f"way (limit {BF16_OFF_SHARE})")
-            del m, d
+            # and bit for bit the rounding of the kernel's own f32 maxima
+            f32 = pk.split_rowmax(x, c, run=run)
+            if not torch.equal(got, pk.bf16_round(f32)):
+                fail(f"split_rowmax {label}: {int((got != pk.bf16_round(f32)).sum())} bf16 maxima are not "
+                     "the rounding of the kernel's f32 maxima")
+            del m, d, f32
         else:
             off = int(((got - want).abs() > SPLIT_RTOL * want.abs().clamp_min(1.0)).sum())
             if off:
@@ -1454,7 +1463,7 @@ def probe_kernel_rows(probes: dict, probe_paths: dict, by_path) -> list[dict]:
                  "T4": "kexp_assign", "T5": "minidot_probe", "T6": "minidot_probe",
                  "T7": "minidot_probe", "T8": "minidot_probe"}
     rows = []
-    for name_, source in (("probe_kloop", "csrc/probe_kloop.cu"), ("split_rowmax", "csrc/split_scores.cu"),
+    for name_, source in (("probe_kloop", "csrc/probe_kloop.cu"), ("split_rowmax", "csrc/split_assign.cu"),
                           ("split_assign", "csrc/split_assign.cu")):
         common = {"name": name_, "route": "cuda", "source": f"hybridquantization_tpu_torch/{source}"}
         variants = []

@@ -1,9 +1,14 @@
-// T4 (at f32x3), T7, T8: the split-bf16 assignment on the tensor cores.
+// T4 (at f32x3), T7, T8: the split-bf16 assignment on the tensor cores;
+// T3, T5, T6 and T4's `dotmax`: the row max of the same scores (max mode).
 //
 // Replaces the TPU probes tools/kexp_assign.py make_kernel at precision
 // "f32x3" (:67-256, pallas_call in run_variant, :271) and
 // tools/minidot_probe.py _mini_full_kernel and _mini_full2_kernel
-// (:129-187, pallas_calls at :252, :302). Per member p, pixel i and
+// (:129-187, pallas_calls at :252, :302); in max mode
+// tools/vpu_assign_exp.py make_dotprobe_kernel (:309-333, pallas_call in
+// run_dotprobe, :342), make_kernel's `dotmax` and minidot_probe.py
+// _dense_kernel and _mini_kernel (:48-81, pallas_calls at :204, :220).
+// Per member p, pixel i and
 // candidate k the split-bf16 score: each operand split into bf16 hi =
 // bf16(a) and lo = bf16(a - hi), and the 12-deep contraction
 //   s = [ch; ch; cl] . [xh; xl; xh]   (over the 4 rows of x and c)
@@ -14,15 +19,23 @@
 // "average" (T4's `avg`), every maximum a hit, the colour the undivided
 // sum of the hits' colours in index order, counts the hits. A NaN score
 // never wins (nor enters the max); a pixel with no winner gets index -1,
-// colour 0 and no count. Candidates are one dense set per member, c (pop,
+// colour 0 and no count. Max mode: the max over k of s alone (a pixel
+// whose scores are all NaN gets -inf), optionally rounded to bf16 (to
+// nearest, ties to even). Candidates are one dense set per member, c (pop,
 // 4, Kc), or one set per run of `run` pixels, c (pop, R, 4, Kc).
 //
 // What bounds it on the H100: the products are 64 x 16 x Kc bf16 MACs a
 // 64-pixel tile and member (0.21 ms at 4K/K256/pop4 at the dense bf16
 // peak, the 16-deep contraction included); the argmax needs at least one
-// fp32 instruction a score (0.25 ms at the fp32 peak) and this design
-// issues about 2.3 plus a product's own. fp32 instruction issue bounds it:
-// the argmax, then the per-product work and the writes, not the products.
+// fp32 instruction a score (0.25 ms at one instruction a lane and clock)
+// and this design issues about 2.3 plus a product's own. fp32 instruction
+// issue bounds it: the argmax, then the per-product work and the writes,
+// not the products. Max mode issues one fmaxf a score (0.25 ms, or 0.51
+// if FMNMX issues at half the FMA pipe's rate), beside the products'
+// 16-deep contraction (0.27 ms) and the wait for each product, which the
+// other warpgroups of the SM must cover: keeping a second product in
+// flight in the warpgroup made ptxas serialise (C7514) or cost occupancy,
+// and ran slower (PERF.md §6).
 // The design:
 //  - one warpgroup takes 64 pixels: A = [xh; xl; xh; 1, 0, 0, 0] of its
 //    pixels, 16 bf16 deep, is built once per tile in registers (the
@@ -50,8 +63,16 @@
 //    one hit (almost all) is written like first mode, a row with two or
 //    more walks its lanes' masks, kept per member and chunk in shared
 //    memory, in index order, adding colours and counts;
-//  - after a tile's last product the warpgroup writes every member's 64
-//    pixels (colours from device memory, coalesced stores);
+//  - max mode (max_tile): four chains of fmaxf over each of a lane's two
+//    rows into a running max a row and lane, one instruction a score (NaN
+//    never enters, padding is -inf: no compare, select or branch); the
+//    row's four lanes merge by two shuffles once per member and two lanes
+//    store the row's maxima; no index, colour or count. bf16 output rounds
+//    the merged f32 max once, at the store. The next tile's pixels are
+//    loaded while the products run;
+//  - the assignment: after a tile's last product the warpgroup writes
+//    every member's 64 pixels (colours from device memory, coalesced
+//    stores);
 //  - dense: a persistent grid (as many blocks as fit at once) stages every
 //    member's B once per block and strides over the 64-pixel tiles;
 //  - per run: each warpgroup strides over runs on its own (its own B and
@@ -80,6 +101,9 @@ constexpr int kRows = 64;        // pixels of a warpgroup's tile (wgmma M)
 constexpr int kWarpgroup = 128;  // threads of a warpgroup
 constexpr int kStages = 3;       // per-run candidate sets in flight
 constexpr unsigned kFull = 0xffffffffu;
+
+// first index of the max; every maximum a hit (tie mode "average"); the max alone
+enum class Mode { kFirst, kAverage, kMax };
 
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
@@ -232,14 +256,15 @@ __device__ __forceinline__ void stage_b(const float* c, size_t pstride, int Kc, 
 
 // Bytes of one B and one ring (ops/probe_kernels.split_assign_plan sums the
 // kernel's regions in this order: B (one, or one a warpgroup per run), the
-// per-run rings, average mode's hit masks, the merged rows, hist).
+// per-run rings, average mode's hit masks, the merged rows, hist; max mode
+// has B and the rings alone).
 __host__ __device__ constexpr size_t b_bytes(int pop, int kpad) { return (size_t)pop * kpad * 32; }
 __host__ __device__ constexpr size_t ring_bytes(int pop, int Kc) {
   return (size_t)kStages * pop * 4 * Kc * sizeof(float);
 }
 // ints of one warpgroup's merged rows: per member and row the winner (and
 // in average mode its hits and the four lanes' first chunks), then a slot
-// the lanes that write nothing write to
+// the lanes that write nothing write to (none in max mode)
 __host__ __device__ constexpr int res_ints(int pop, bool average) {
   return pop * kRows * (average ? 6 : 1) + 8;
 }
@@ -375,6 +400,8 @@ struct Args {
   float* opp;
   int* counts;
   int* idx_out;
+  float* maxima;  // max mode: (pop, P)
+  bool out_bf16;
 };
 
 // Member p's colour, count and index of the pixel `pix` from its merged
@@ -429,6 +456,72 @@ __device__ __forceinline__ void emit(const Args& g, int* hist, int p, size_t pix
   if (g.idx_out != nullptr) g.idx_out[(size_t)p * P + pix] = win;
 }
 
+// The x values of this lane's A fragment: rows r0, r0 + 1 (r0 = 0 or 2
+// by t) of pixels pa and pb, 0 past px1.
+__device__ __forceinline__ void load_x(const float* x, int P, size_t pa, size_t pb, size_t px1,
+                                       int t, float (&v)[4]) {
+  const int r0 = (t & 1) * 2;
+  v[0] = v[1] = v[2] = v[3] = 0.0f;
+  if (pa < px1) {
+    v[0] = x[(size_t)r0 * P + pa];
+    v[1] = x[(size_t)(r0 + 1) * P + pa];
+  }
+  if (pb < px1) {
+    v[2] = x[(size_t)r0 * P + pb];
+    v[3] = x[(size_t)(r0 + 1) * P + pb];
+  }
+}
+
+// A fragment (mma.m16n8k16 layout for this warp's 16 rows) from load_x's
+// values: a0 row g, a1 row g + 8, contraction columns 2t, 2t + 1; a2, a3
+// columns 2t + 8, 2t + 9. Columns 0-3 xh, 4-7 xl, 8-11 xh, 12 one, 13-15
+// zero.
+__device__ __forceinline__ void a_fragment(const float (&v)[4], int t, uint32_t (&a)[4]) {
+  __nv_bfloat16 h[4], lo[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) split(v[j], h[j], lo[j]);
+  const uint32_t one = t == 2 ? pack2(__float2bfloat16_rn(1.0f), __float2bfloat16_rn(0.0f)) : 0u;
+  if (t < 2) {
+    a[0] = a[2] = pack2(h[0], h[1]);
+    a[1] = a[3] = pack2(h[2], h[3]);
+  } else {
+    a[0] = pack2(lo[0], lo[1]);
+    a[1] = pack2(lo[2], lo[3]);
+    a[2] = a[3] = one;
+  }
+}
+
+// One product into the held accumulator, waited for. Issued by every
+// thread of the warpgroup, converged.
+template <int NB>
+__device__ __forceinline__ void product(float (&d)[NB / 2], const uint32_t (&a)[4], uint64_t desc) {
+  __syncwarp();
+  fence_regs(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  wgmma<NB>(d, a, desc);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  wgmma_wait<0>();
+  fence_regs(d);
+}
+
+// One row of a product held by this lane (E = 0: row a, its values
+// d[4i], d[4i + 1]; E = 2: row b, d[4i + 2], d[4i + 3]) folded into the
+// running max r: four chains of fmaxf, NB / 4 instructions for NB / 4
+// scores (loops of unit stride only, so every value stays in a register).
+// fmaxf drops a NaN operand, so a NaN score never enters the max.
+template <int NB, int E>
+__device__ __forceinline__ float fold_max(const float (&d)[NB / 2], float r) {
+  float m[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) m[j] = fmaxf(d[4 * j + E], d[4 * j + E + 1]);
+#pragma unroll
+  for (int i = 4; i < NB / 8; ++i) {
+    m[i & 3] = fmaxf(m[i & 3], d[4 * i + E]);
+    m[i & 3] = fmaxf(m[i & 3], d[4 * i + E + 1]);
+  }
+  return fmaxf(fmaxf(r, fmaxf(m[0], m[1])), fmaxf(m[2], m[3]));
+}
+
 // One warpgroup's 64-pixel tile [px0, px1): for every member and chunk of
 // NB candidates (product j = p x chunks + chunk, B at b + j x NB x 2
 // uint4s) one wgmma, waited for, then the argmax on the held accumulator;
@@ -450,33 +543,11 @@ __device__ __forceinline__ void do_tile(const Args& g, const uint4* b, uint32_t*
   constexpr int kRes = kAverage ? 6 : 1;
   int* spare = res + pop * kRows * kRes;
 
-  // A fragment (mma.m16n8k16 layout for this warp's 16 rows): a0 row g,
-  // a1 row g + 8, contraction columns 2t, 2t + 1; a2, a3 columns 2t + 8,
-  // 2t + 9. Columns 0-3 xh, 4-7 xl, 8-11 xh, 12 one, 13-15 zero.
   uint32_t a[4];
   {
-    const int r0 = (t & 1) * 2;
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (pa < px1) {
-      v[0] = g.x[(size_t)r0 * P + pa];
-      v[1] = g.x[(size_t)(r0 + 1) * P + pa];
-    }
-    if (pb < px1) {
-      v[2] = g.x[(size_t)r0 * P + pb];
-      v[3] = g.x[(size_t)(r0 + 1) * P + pb];
-    }
-    __nv_bfloat16 h[4], lo[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) split(v[j], h[j], lo[j]);
-    const uint32_t one = t == 2 ? pack2(__float2bfloat16_rn(1.0f), __float2bfloat16_rn(0.0f)) : 0u;
-    if (t < 2) {
-      a[0] = a[2] = pack2(h[0], h[1]);
-      a[1] = a[3] = pack2(h[2], h[3]);
-    } else {
-      a[0] = pack2(lo[0], lo[1]);
-      a[1] = pack2(lo[2], lo[3]);
-      a[2] = a[3] = one;
-    }
+    float v[4];
+    load_x(g.x, P, pa, pb, px1, t, v);
+    a_fragment(v, t, a);
   }
 
   // the descriptor's start address field counts 16 bytes: a product is NB x 2 of them
@@ -486,13 +557,7 @@ __device__ __forceinline__ void do_tile(const Args& g, const uint4* b, uint32_t*
     reset(ra);
     reset(rb);
     for (int nc = 0; nc < chunks; ++nc, desc += NB * 2) {
-      __syncwarp();  // issued by every thread of the warpgroup, converged
-      fence_regs(d);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-      wgmma<NB>(d, a, desc);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      wgmma_wait<0>();
-      fence_regs(d);
+      product<NB>(d, a, desc);
       // value 4i + e is (row a, column 8i + 2t + e), 4i + 2 + e row b
       float va[NB / 4], vb[NB / 4];
 #pragma unroll
@@ -527,12 +592,61 @@ __device__ __forceinline__ void do_tile(const Args& g, const uint4* b, uint32_t*
   wg_sync(wg);  // res and rec are free for the next tile
 }
 
-template <int NB, bool kAverage>
+// Max mode's tile [px0, px1), whose x values this lane holds in xv: for
+// every member and chunk one product, waited for, then the running max of
+// each of the lane's two rows over the held values (fold_max); after a
+// member's last chunk the row's four lanes merge (two shuffles) and lanes
+// t = 0 and 1 store rows a and b. A warp's two stores of a member fill two
+// whole 32-byte sectors (rows 16w .. 16w + 7 and 16w + 8 .. 16w + 15), so
+// staging the tile in shared memory would buy no coalescing for its two
+// barriers. The next tile's x values [nx0, nx1) are loaded into xv while
+// the products run.
+template <int NB>
+__device__ __forceinline__ void max_tile(const Args& g, const uint4* b, size_t px0, size_t px1,
+                                         float (&xv)[4], size_t nx0, size_t nx1,
+                                         float (&d)[NB / 2]) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3;
+  const int gr = lane >> 2, t = lane & 3;
+  const int row_a = 16 * warp + gr, row_b = row_a + 8;
+  const int P = g.P, chunks = g.chunks, pop = g.pop;
+
+  uint32_t a[4];
+  a_fragment(xv, t, a);
+  load_x(g.x, P, nx0 + row_a, nx0 + row_b, nx1, t, xv);
+  // the descriptor's start address field counts 16 bytes: a product is NB x 2 of them
+  uint64_t desc = b_desc(b);
+  float ma = -INFINITY, mb = -INFINITY;
+  // products p x chunks + nc in turn, in one loop (nested member and chunk
+  // loops made ptxas spill at N = 64)
+  for (int p = 0, nc = 0, j = 0; j < pop * chunks; ++j, desc += NB * 2) {
+    product<NB>(d, a, desc);
+    ma = fold_max<NB, 0>(d, ma);
+    mb = fold_max<NB, 2>(d, mb);
+    if (++nc < chunks) continue;
+    ma = fmaxf(ma, __shfl_xor_sync(kFull, ma, 1));
+    mb = fmaxf(mb, __shfl_xor_sync(kFull, mb, 1));
+    ma = fmaxf(ma, __shfl_xor_sync(kFull, ma, 2));
+    mb = fmaxf(mb, __shfl_xor_sync(kFull, mb, 2));
+    // Rounding to nearest (ties to even) is monotone (non-decreasing), so
+    // the bf16 rounding of the f32 max is the max of the rounded scores
+    // (and -inf stays -inf): one rounding an output instead of one a score.
+    const size_t pix = px0 + (t == 0 ? row_a : row_b);
+    const float m = t == 0 ? ma : mb;
+    if (t < 2 && pix < px1) g.maxima[(size_t)p * P + pix] = g.out_bf16 ? bf16_round(m) : m;
+    ma = mb = -INFINITY;
+    nc = 0;
+    ++p;
+  }
+}
+
+template <int NB, Mode M>
 __global__ void __launch_bounds__(2 * kWarpgroup, NB == 64 ? 3 : 2)
     assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
                   const float* __restrict__ o, int P, int Kc, int pop, int run, int R,
                   int opp_parts, bool shared_hist, float* __restrict__ opp,
-                  int* __restrict__ counts, int* __restrict__ idx_out) {
+                  int* __restrict__ counts, int* __restrict__ idx_out,
+                  float* __restrict__ maxima, bool out_bf16) {
+  constexpr bool kAverage = M == Mode::kAverage;
   extern __shared__ __align__(128) unsigned char smem[];
   const int kpad = (Kc + NB - 1) / NB * NB, chunks = kpad / NB;
   const int wgs = blockDim.x / kWarpgroup, wg = threadIdx.x / kWarpgroup;
@@ -547,7 +661,7 @@ __global__ void __launch_bounds__(2 * kWarpgroup, NB == 64 ? 3 : 2)
   uint32_t* rec = reinterpret_cast<uint32_t*>(base) + wg * rec_words;
   base += kAverage ? wgs * rec_words * sizeof(uint32_t) : 0;
   int* res = reinterpret_cast<int*>(base) + wg * res_ints(pop, kAverage);
-  base += (size_t)wgs * res_ints(pop, kAverage) * sizeof(int);
+  base += M == Mode::kMax ? 0 : (size_t)wgs * res_ints(pop, kAverage) * sizeof(int);
   int* hist = reinterpret_cast<int*>(base);
 
   float d[NB / 2];
@@ -556,7 +670,23 @@ __global__ void __launch_bounds__(2 * kWarpgroup, NB == 64 ? 3 : 2)
   if (shared_hist) {
     for (int k = threadIdx.x; k < pop * Kc; k += blockDim.x) hist[k] = 0;
   }
-  Args g{x, o, (size_t)4 * Kc, P, Kc, chunks, pop, opp_parts, shared_hist, opp, counts, idx_out};
+  Args g{x, o, (size_t)4 * Kc, P, Kc, chunks, pop, opp_parts, shared_hist, opp, counts, idx_out,
+         maxima, out_bf16};
+  // max mode: this lane's x values of its warpgroup's next tile
+  float xv[4];
+  auto load_next = [&](size_t nx0, size_t nx1) {
+    const int row_a = 16 * ((threadIdx.x / 32) & 3) + (threadIdx.x & 31) / 4;
+    load_x(x, P, nx0 + row_a, nx0 + row_a + 8, nx1, threadIdx.x & 3, xv);
+  };
+  // one tile [px0, px1), the next one of this warpgroup [nx0, nx1) (empty
+  // if none): the assignment's, or max mode's
+  auto run_tile = [&](size_t px0, size_t px1, size_t nx0, size_t nx1) {
+    if constexpr (M == Mode::kMax) {
+      max_tile<NB>(g, b, px0, px1, xv, nx0, nx1, d);
+    } else {
+      do_tile<NB, kAverage>(g, b, rec, res, hist, wg, px0, px1, d);
+    }
+  };
   const size_t gw = (size_t)blockIdx.x * wgs + wg, nw = (size_t)gridDim.x * wgs;
 
   if (run == 0) {
@@ -565,9 +695,10 @@ __global__ void __launch_bounds__(2 * kWarpgroup, NB == 64 ? 3 : 2)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     const size_t tiles = ((size_t)P + kRows - 1) / kRows;
+    auto end = [&](size_t tile) { return tile < tiles ? min((size_t)P, (tile + 1) * kRows) : 0; };
+    if constexpr (M == Mode::kMax) load_next(gw * kRows, end(gw));
     for (size_t tile = gw; tile < tiles; tile += nw) {
-      const size_t px0 = tile * kRows;
-      do_tile<NB, kAverage>(g, b, rec, res, hist, wg, px0, min((size_t)P, px0 + kRows), d);
+      run_tile(tile * kRows, end(tile), (tile + nw) * kRows, end(tile + nw));
     }
   } else {
     // per run: each warpgroup strides over the runs on its own (its own B
@@ -591,6 +722,11 @@ __global__ void __launch_bounds__(2 * kWarpgroup, NB == 64 ? 3 : 2)
 #pragma unroll
     for (int it = 0; it < kStages - 1; ++it) prefetch(it);
     const int tiles = (run + kRows - 1) / kRows;
+    // the first tile of run r: [r x run, its end)
+    auto first_end = [&](size_t r) {
+      return r < (size_t)R ? min((size_t)P, r * run + min(run, kRows)) : 0;
+    };
+    if constexpr (M == Mode::kMax) load_next(gw * run, first_end(gw));
     for (size_t it = 0; it < its; ++it) {
       prefetch(it + kStages - 1);
       asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
@@ -599,13 +735,18 @@ __global__ void __launch_bounds__(2 * kWarpgroup, NB == 64 ? 3 : 2)
       stage_b(raw + (it % kStages) * set_f4 * 4, (size_t)4 * Kc, Kc, kpad, pop, b, tid, kWarpgroup);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       wg_sync(wg);
-      g.o = o + r * 4 * Kc;
-      g.opstride = (size_t)R * 4 * Kc;
+      if constexpr (M != Mode::kMax) {  // this run's colours
+        g.o = o + r * 4 * Kc;
+        g.opstride = (size_t)R * 4 * Kc;
+      }
       const size_t run0 = r * run, run1 = min((size_t)P, run0 + run);
       for (int m = 0; m < tiles; ++m) {
-        const size_t px0 = run0 + (size_t)m * kRows;
+        const size_t px0 = run0 + (size_t)m * kRows, px1 = min(run1, px0 + kRows);
         if (px0 < run1) {
-          do_tile<NB, kAverage>(g, b, rec, res, hist, wg, px0, min(run1, px0 + kRows), d);
+          // the next tile: this run's, or the first of the warpgroup's next run
+          const bool in_run = px1 < run1;
+          run_tile(px0, px1, in_run ? px1 : (r + nw) * run,
+                   in_run ? min(run1, px1 + kRows) : first_end(r + nw));
         }
       }
     }
@@ -621,15 +762,16 @@ __global__ void __launch_bounds__(2 * kWarpgroup, NB == 64 ? 3 : 2)
   }
 }
 
-template <int NB, bool kAverage>
+template <int NB, Mode M>
 int launch(const float* x4, const float* c, const float* o, int P, int Kc, int pop, int run, int R,
            int opp_parts, int wgs, int blocks, int shared_hist, int smem, float* opp, int* counts,
-           int* idx, cudaStream_t s) {
-  auto kernel = assign_kernel<NB, kAverage>;
+           int* idx, float* maxima, bool out_bf16, cudaStream_t s) {
+  auto kernel = assign_kernel<NB, M>;
   const int e = hq_persistent_grid(kernel, wgs * kWarpgroup, smem, &blocks);
   if (e != 0) return e;
   kernel<<<blocks, wgs * kWarpgroup, smem, s>>>(x4, c, o, P, Kc, pop, run, R, opp_parts,
-                                                shared_hist != 0, opp, counts, idx);
+                                                shared_hist != 0, opp, counts, idx, maxima,
+                                                out_bf16);
   return (int)cudaGetLastError();
 }
 
@@ -653,11 +795,33 @@ extern "C" int hq_split_assign(const float* x4, const float* c, const float* o, 
   }
   const int R = run > 0 ? (int)(((size_t)P + run - 1) / run) : 1;
   cudaStream_t s = (cudaStream_t)stream;
-#define HQ_LAUNCH(NB, AVG)                                                                       \
-  launch<NB, AVG>(x4, c, o, P, Kc, pop, run, R, opp_parts, wgs, blocks, shared_hist, smem, opp, \
-                  counts, idx, s)
-  if (nb == 64) return average ? HQ_LAUNCH(64, true) : HQ_LAUNCH(64, false);
-  if (nb == 128) return average ? HQ_LAUNCH(128, true) : HQ_LAUNCH(128, false);
+#define HQ_LAUNCH(NB, M)                                                                       \
+  launch<NB, M>(x4, c, o, P, Kc, pop, run, R, opp_parts, wgs, blocks, shared_hist, smem, opp, \
+                counts, idx, nullptr, false, s)
+  if (nb == 64) return average ? HQ_LAUNCH(64, Mode::kAverage) : HQ_LAUNCH(64, Mode::kFirst);
+  if (nb == 128) return average ? HQ_LAUNCH(128, Mode::kAverage) : HQ_LAUNCH(128, Mode::kFirst);
+#undef HQ_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// Max mode (split_rowmax): x4 and c as above; out (pop, P) f32, each the
+// max over the candidates of the split-bf16 score, -inf where every score
+// is NaN, rounded to bf16 (nearest, ties to even) when out_bf16. The plan
+// (split_assign_plan with max_only): nb 64 or 128, wgs, blocks, the
+// shared bytes. Returns the cudaGetLastError() of the launch.
+extern "C" int hq_split_rowmax(const float* x4, const float* c, int P, int Kc, int pop, int run,
+                               int out_bf16, int nb, int wgs, int blocks, int smem, float* out,
+                               void* stream) {
+  if (P <= 0 || Kc <= 0 || pop <= 0 || run < 0 || blocks <= 0 || wgs < 1 || wgs > 2) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int R = run > 0 ? (int)(((size_t)P + run - 1) / run) : 1;
+  cudaStream_t s = (cudaStream_t)stream;
+#define HQ_LAUNCH(NB)                                                                          \
+  launch<NB, Mode::kMax>(x4, c, nullptr, P, Kc, pop, run, R, 2, wgs, blocks, 0, smem, nullptr, \
+                         nullptr, nullptr, out, out_bf16 != 0, s)
+  if (nb == 64) return HQ_LAUNCH(64);
+  if (nb == 128) return HQ_LAUNCH(128);
 #undef HQ_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -51,8 +51,8 @@ _SIGNATURES = {
     # x, c4, o4, P, K, pop, slots, width, unroll, threads, blocks, tile, tile_f4, staged,
     # resident, shared_hist, smem, opp, counts, stream
     "hq_probe_kloop": [_P, _P, _P, *[_I] * 14, _P, _P, _P],
-    # x4, c, P, Kc, pop, run, out_bf16, threads, out, stream
-    "hq_split_rowmax": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # x4, c, P, Kc, pop, run, out_bf16, nb, wgs, blocks, smem, out, stream
+    "hq_split_rowmax": [_P, _P, *[_I] * 9, _P, _P],
     # x4, c, o, P, Kc, pop, run, average, opp_parts, nb, wgs, blocks, shared_hist, smem, opp,
     # counts, idx, stream
     "hq_split_assign": [_P, _P, _P, *[_I] * 11, _P, _P, _P, _P],

@@ -20,8 +20,8 @@ plain torch version that the wrapper runs on a CPU tensor:
                  (_mini_full_kernel), T8 (_mini_full2_kernel): the first
                  index of that score's max (or every maximum, T4's `avg`),
                  the winner's colour from 3 exact or 2 bf16 parts, counts.
-                 `csrc/split_assign.cu` (wgmma); split_rowmax is
-                 `csrc/split_scores.cu` (mma.sync).
+                 Both are `csrc/split_assign.cu` (wgmma): split_rowmax is
+                 its max mode.
 
 The split-bf16 score is the probes' defining arithmetic: each operand is
 split into bf16 hi = bf16(a) and lo = bf16(a - hi), and the 12-deep
@@ -121,12 +121,14 @@ def kloop_plan(P: int, K: int, pop: int, *, slots: int = 1, fused: bool = False,
 
 
 def split_assign_plan(P: int, Kc: int, pop: int, *, run: int | None = None, average: bool = False,
-                      threads: int = DEFAULT_THREADS, sms: int = SMS) -> dict:
-    """split_assign's launch: the candidates of one product (`nb`), the
+                      max_only: bool = False, threads: int = DEFAULT_THREADS, sms: int = SMS) -> dict:
+    """split_assign's launch, or with `max_only` split_rowmax's (the same
+    kernel's max mode): the candidates of one product (`nb`), the
     candidates padded to whole products (`kpad`, `chunks` products a member), warpgroups a block,
     shared counts, shared bytes (B: one a block, or with `run` one a
     warpgroup beside its ring of SPLIT_STAGES raw sets; average mode's hit
-    masks; each warpgroup's merged rows; counts: the kernel's order), and
+    masks; each warpgroup's merged rows; counts: the kernel's order; max
+    mode keeps B and the rings alone), and
     the persistent grid (an upper
     bound: the kernel caps it at what fits on the SMs at once). Warpgroup w
     of block b is warpgroup number b x wgs + w of the grid's blocks x wgs;
@@ -138,12 +140,13 @@ def split_assign_plan(P: int, Kc: int, pop: int, *, run: int | None = None, aver
     kpad = -(-Kc // nb) * nb
     chunks = kpad // nb
     wgs = min(SPLIT_MAX_WARPGROUPS, max(1, threads // SPLIT_WARPGROUP))
-    shared_hist = pop * Kc <= SPLIT_HIST_INTS
+    shared_hist = not max_only and pop * Kc <= SPLIT_HIST_INTS
     b = pop * kpad * 32
     if run:
         b = wgs * (b + SPLIT_STAGES * pop * 4 * Kc * 4)
     masks = wgs * pop * SPLIT_ROWS * chunks * 16 if average else 0
-    rows = wgs * (pop * SPLIT_ROWS * (6 if average else 1) + 8) * 4  # merged rows, a spare slot
+    # merged rows, a spare slot (max mode stores from registers)
+    rows = 0 if max_only else wgs * (pop * SPLIT_ROWS * (6 if average else 1) + 8) * 4
     smem = b + masks + rows + (4 * pop * Kc if shared_hist else 0)
     work = -(-P // run) if run else -(-P // SPLIT_ROWS)  # runs or tiles
     per_sm = max(1, min(2048 // (wgs * SPLIT_WARPGROUP), SMEM_PER_SM // (smem + 1024)))
@@ -368,23 +371,27 @@ def split_rowmax_reference(x4, c, *, run=None, out_bf16=False, block_size=DEFAUL
 def split_rowmax(x4, c, *, run=None, out_bf16=False, threads=DEFAULT_THREADS):
     """Per member and pixel, the max over the candidates of the split-bf16
     score (T3, T5, T6; T4's `dotmax`), each score rounded to bf16 (to
-    nearest, ties to even) first when `out_bf16` (T3's bf16 output).
+    nearest, ties to even) first when `out_bf16` (T3's bf16 output). The
+    kernel is split_assign's in max mode; it refuses the shapes that
+    split_assign refuses in first mode, on every device.
 
     Args:
       x4: (4, P) f32 pixels.
       c: (pop, 4, K) f32 candidates, or (pop, ceil(P / run), 4, KC) with `run`.
       run: pixels per candidate set (None: one dense set per member).
-      threads: threads per CUDA block.
+      threads: threads per CUDA block, in whole warpgroups of 128 (rounded
+        down, at least one, at most two).
 
     Returns:
       (pop, P) f32; -inf where every score is NaN.
     """
     _check_split(x4, c, None, run, threads)
+    pop, P, kc = c.shape[0], x4.shape[1], c.shape[-1]
+    plan = _rowmax_plan(P, kc, pop, run, threads, _sms(x4.device))
     if x4.device.type == "cpu":
         return split_rowmax_reference(x4, c, run=run, out_bf16=out_bf16)
     if x4.device.type != "cuda":
         raise ValueError(f"unsupported device {x4.device}")
-    pop, P = c.shape[0], x4.shape[1]
     x4, c = x4.contiguous(), c.contiguous()
     out = torch.empty((pop, P), dtype=torch.float32, device=x4.device)
     if P == 0:
@@ -393,8 +400,8 @@ def split_rowmax(x4, c, *, run=None, out_bf16=False, threads=DEFAULT_THREADS):
     split_rowmax.launches += 1
     _cuda.check(
         lib.hq_split_rowmax(
-            x4.data_ptr(), c.data_ptr(), P, c.shape[-1], pop, run or 0, int(out_bf16), threads,
-            out.data_ptr(), _cuda.stream(x4.device),
+            x4.data_ptr(), c.data_ptr(), P, kc, pop, run or 0, int(out_bf16), plan["nb"],
+            plan["wgs"], plan["blocks"], plan["smem"], out.data_ptr(), _cuda.stream(x4.device),
         ),
         "hq_split_rowmax",
     )
@@ -413,6 +420,13 @@ def _assign_plan(P, kc, pop, run, tie_mode, threads, sms=SMS) -> dict:
         raise ValueError(f"pop {pop} x {kc} candidates exceed split_assign's shared memory "
                          f"({plan['smem']} bytes, tie_mode {tie_mode!r}, run {run})")
     return plan
+
+
+def _rowmax_plan(P, kc, pop, run, threads, sms=SMS) -> dict:
+    """split_rowmax's plan (max mode, which needs fewer shared bytes than
+    first mode); ValueError where first mode's plan is refused."""
+    _assign_plan(P, kc, pop, run, "first", threads, sms)
+    return split_assign_plan(P, kc, pop, run=run, max_only=True, threads=threads, sms=sms)
 
 
 def split_assign_reference(x4, c, o, *, run=None, tie_mode="first", opp_parts=3,

@@ -519,6 +519,37 @@ def test_split_rowmax_kernel_matches_plain(cuda_device, P, K, pop, run):
     bf_want = pk.split_rowmax_reference(x4, c4, run=run, out_bf16=True)
     assert int((bf != bf_want).sum()) <= max(1.0, BF16_OFF_SHARE * bf.numel())
     assert torch.equal(bf, ak.bf16_round(bf))
+    # the kernel rounds its own f32 maximum once: bit for bit its f32 output's rounding
+    assert torch.equal(bf, ak.bf16_round(got))
+
+
+@pytest.mark.parametrize("K", [3, 77, 200, 256, 300])
+@pytest.mark.parametrize("run", [None, 100])
+def test_split_rowmax_nan_pixels_nan_candidates_and_duplicates(cuda_device, K, run):
+    """Max mode at both product widths (N = 64; N = 128 over one to three
+    chunks, the last ragged): a pixel whose scores are all NaN gets -inf in
+    both outputs, a NaN candidate never enters the max (the other maxima
+    stay within SPLIT_RTOL of plain, duplicate candidates beside them), and
+    the bf16 output is the rounding of the f32 output."""
+    P = 20011
+    x4, c4, _ = _probe_inputs(P, K, 4, 13 * K + (run or 0), cuda_device, ones=run is None)
+    if run is not None:
+        g = torch.Generator().manual_seed(K)
+        c4 = torch.rand((4, -(-P // run), 4, K), generator=g).to(cuda_device)
+    nan_px = torch.arange(3, P, 997, device=cuda_device)
+    x4[:, nan_px] = float("nan")
+    c4[..., 1, K // 2] = float("nan")
+    c4[..., K - 1] = c4[..., 0]
+    got = pk.split_rowmax(x4, c4, run=run)
+    bf = pk.split_rowmax(x4, c4, run=run, out_bf16=True)
+    torch.cuda.synchronize()
+    want = pk.split_rowmax_reference(x4, c4, run=run)
+    assert bool((got[:, nan_px] == float("-inf")).all()) and bool((bf[:, nan_px] == float("-inf")).all())
+    assert bool((want[:, nan_px] == float("-inf")).all()) and not bool(torch.isnan(got).any())
+    rest = torch.ones(P, dtype=torch.bool, device=cuda_device)
+    rest[nan_px] = False
+    assert _split_scores_close(got[:, rest], want[:, rest])
+    assert torch.equal(bf, ak.bf16_round(got))
 
 
 def _check_split_assign(x4, c, o, run, tie_mode, parts):

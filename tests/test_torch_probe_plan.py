@@ -149,3 +149,62 @@ def test_split_assign_refuses_average_mode_past_its_shared_memory_on_every_devic
     assert pk.split_assign_plan(100, kc, 1, average=True)["smem"] > pk.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="split_assign's shared memory"):
         pk.split_assign(torch.zeros((4, 100)), c, c, tie_mode="average")
+
+
+@pytest.mark.parametrize("P,Kc,pop,run,threads", [
+    (52073, 77, 4, None, 256),
+    (8 * 1024, 256, 4, None, 128),
+    (3840 * 2160 // 64, 200, 4, None, 256),
+    (1000, 3, 2, None, 32),
+    (100, 300, 1, None, 512),
+    (52073, 64, 4, 128, 256),
+    (52073, 64, 4, 100, 256),
+    (8 * 1024, 64, 4, 256, 128),
+    (130, 77, 2, 100, 256),
+])
+def test_split_rowmax_grid_covers_every_pixel_once(P, Kc, pop, run, threads):
+    """Max mode's plan takes first mode's products and walks the grid as
+    first mode's does, each pixel once whatever count of blocks runs."""
+    plan = pk.split_assign_plan(P, Kc, pop, run=run, max_only=True, threads=threads)
+    first = pk.split_assign_plan(P, Kc, pop, run=run, threads=threads)
+    for key in ("nb", "kpad", "chunks", "wgs", "work", "blocks"):
+        assert plan[key] >= first[key] if key == "blocks" else plan[key] == first[key], key
+    assert not plan["shared_hist"] and 1 <= plan["blocks"] * plan["wgs"] < plan["work"] + plan["wgs"]
+    assert np.array_equal(_split_hits(plan, P, run), np.ones(P, np.int64))
+    for blocks in (1, 3):
+        assert np.array_equal(_split_hits(dict(plan, blocks=blocks), P, run), np.ones(P, np.int64))
+
+
+@pytest.mark.parametrize("run", [None, 128, 100])
+@pytest.mark.parametrize("pop", [1, 4, 7])
+def test_split_rowmax_plan_needs_fewer_shared_bytes_than_first_mode(pop, run):
+    """Max mode keeps no counts, masks or colours: at every K its shared
+    bytes are under first mode's, its B the same."""
+    for kc in (1, 3, 64, 65, 77, 128, 129, 256, 257, 300, 512, 872):
+        plan = pk.split_assign_plan(1000, kc, pop, run=run, max_only=True)
+        first = pk.split_assign_plan(1000, kc, pop, run=run)
+        assert plan["smem"] < first["smem"] and plan["kpad"] == first["kpad"], (kc, plan, first)
+
+
+def _rowmax_accepts(P, kc, pop, run):
+    """Whether split_rowmax takes these shapes (the checks before any launch)."""
+    x4 = torch.zeros((4, P))
+    c = torch.zeros((pop, 4, kc) if run is None else (pop, -(-P // run), 4, kc))
+    try:
+        pk._check_split(x4, c, None, run, pk.DEFAULT_THREADS)
+        plan = pk._rowmax_plan(P, kc, pop, run, pk.DEFAULT_THREADS)
+    except ValueError:
+        return False
+    assert plan["smem"] <= pk.SMEM_PER_BLOCK
+    return True
+
+
+@pytest.mark.parametrize("pop", [1, 4, 7, 8])
+@pytest.mark.parametrize("run", [None, 128])
+def test_split_rowmax_refuses_the_same_k_as_first_mode(pop, run):
+    """split_rowmax and split_assign in first mode take the same K (every
+    one up to the largest, on every device); the max plan of each fits a block."""
+    P = 1000
+    ks = range(8, 6145, 8)
+    assert [kc for kc in ks if _rowmax_accepts(P, kc, pop, run)] == \
+        [kc for kc in ks if _accepts(P, kc, pop, run, "first")]
