@@ -18,10 +18,13 @@ kernel with any filter, and the two-pass one) and at 123 taps (above the
 fused kernel's limit) through the two-pass path on the 1024x768 frame,
 prints B2's peak device memory per launch (4K/pop4, each batch bucket),
 checks the annealing slice and the exact Lloyd polish against the plain
-path on small inputs, then drives five paths at full width, each with the
-launch counts
-set to 0 just before it and read just after:
+path on small inputs, then drives six paths at full width, each with the
+launch counts set to 0 just before it and read just after:
 
+  parity            layer 2 of docs/PARITY.md at config-1 (512x512, K=16,
+                    smooth): `tools.fitness_parity`, 2 batches of 4 random
+                    palettes through B1 and B2 against the f64 oracle
+                    (`tests/oracle.py`); it must print PASS at 1e-3;
   e2e               random init, imax=30: `HybridQuantizer(...).run` and
                     `error_image` (B1, B2; B3 in quantize);
   quality schedule  k-means seeds, imax=50, `.polish` (histogram at 4K),
@@ -139,6 +142,9 @@ HIST_POLISH_PIXELS = 1 << 20  # polish_palette's "auto": the histogram from this
 LLOYD_RUN = SEED_STEPS + POLISH  # B3 Lloyd-step launches of a seeded, polished run (an image or a bucket)
 # the probe kernels (T1-T8): the engine paths launch none of them
 NO_PROBES = {"probe_kloop": 0, "split_rowmax": 0, "split_assign": 0}
+# phase_parity: the port's layer-2 parity tool at config-1, 2 palette batches
+PARITY_ARGS = ["--content", "smooth", "--size", "512", "--colors", "16", "--palettes", "2",
+               "--population", "4", "--tolerance", "1e-3"]
 # split-bf16 scores, kernel against plain: the tensor cores' f32 accumulation
 # against a sequential sum of the same 12 exact products, relative to
 # max(1, |score|) (4.8e-7 measured at 4K)
@@ -1147,6 +1153,33 @@ def phase_small_slice(dev) -> None:
           f"max |error diff| {worst:.3g} <= {SMALL_ATOL}; best {float(states[dev].best_error):.5f}")
 
 
+def phase_parity() -> dict:
+    """Layer 2 of the parity protocol (docs/PARITY.md) at config-1 (512x512,
+    K=16, smooth): the port's `tools.fitness_parity` on the card, 2 palette
+    batches of population 4, against the f64 oracle at tolerance 1e-3, the
+    counts set to 0 just before and read just after. It must print PASS and
+    launch B1 and B2, and no probe kernel."""
+    from hybridquantization_tpu_torch.tools import fitness_parity
+
+    buf = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fitness_parity.main(PARITY_ARGS)
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    lines = [ln for ln in buf.getvalue().splitlines() if ln]
+    print("\n".join(f"parity: {ln}" for ln in lines))
+    if rc != 0 or "DETERMINISTIC PARITY: PASS" not in lines[-1]:
+        fail(f"fitness_parity {' '.join(PARITY_ARGS)}: rc {rc}, {lines[-1]}")
+    if launches["assign_pop"] == 0 or launches["fused_fitness"] == 0:
+        fail(f"fitness_parity launched {launches}: B1 and B2 at least once")
+    if {k: launches[k] for k in NO_PROBES} != NO_PROBES:
+        fail(f"fitness_parity launched a probe kernel: {launches}")
+    print(f"parity: fitness_parity {' '.join(PARITY_ARGS)} in {secs:.1f} s, launches {launches}")
+    return launches
+
+
 def phase_e2e(img, dev) -> tuple[dict, float]:
     from hybridquantization_tpu_torch import HybridQuantizer, QuantizationConfig, SWASAConfig
 
@@ -1786,6 +1819,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_small_slice(dev)
     phase_small_polish(dev)
+    parity = phase_parity()
     launches, random_de = phase_e2e(img, dev)
     quality, exact = phase_quality_schedule(img, dev, random_de)
     cli_counts = phase_cli(dev)
@@ -1823,7 +1857,8 @@ def main() -> int:
 
     def by_path(name_):
         return {**{path: counts[name_] for path, counts in mesh_paths.items()},
-                "e2e_random_imax30": launches[name_], "quality_schedule": quality[name_],
+                "e2e_random_imax30": launches[name_], "fitness_parity_config1": parity[name_],
+                "quality_schedule": quality[name_],
                 "exact_polish_4k": exact[name_], "cli_quantize": cli_counts[name_],
                 "fast_schedule": fast[name_], "quantize_batch_64": batch["launches"][name_],
                 "cli_quantize_batch_4": batch["cli_launches"][name_],

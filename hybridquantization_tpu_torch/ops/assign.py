@@ -13,6 +13,10 @@ strict-less scan, so ties go to the first (lowest) index
 (OptimizedConvolution.cl:147-199), and a NaN score never wins, as the
 reference's strict comparison would skip it.
 
+`lloyd_step` here is B3's Lloyd-step mode itself (ops.assign_kernel),
+which takes JAX's single-palette form ((P, 3) pixels, (K, 3) palette) as
+its unbatched case.
+
 Quantize and the polish take an optional leading image axis (the JAX batch
 engine vmaps them, `parallel/batch.py:41-50`): a bucket's images, each with
 its own palette, go through one B3 launch a lookup or a Lloyd step.
@@ -65,6 +69,12 @@ def palette_usage(idx: torch.Tensor, num_colors: int) -> torch.Tensor:
     """(K,) bool — whether any pixel selected each palette entry
     (the reference's usedColors flags, OptimizedConvolution.cl:169,193)."""
     return torch.bincount(idx, minlength=num_colors)[:num_colors] > 0
+
+
+def assign_with_usage(pixels: torch.Tensor, palette: torch.Tensor):
+    """(indices, usage) in one call: nearest_palette, then palette_usage."""
+    idx = nearest_palette(pixels, palette)
+    return idx, palette_usage(idx, palette.shape[0])
 
 
 def _take(palette: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -70,3 +70,9 @@ def conv1d_symmetric(x: torch.Tensor, kernels: torch.Tensor, axis: int) -> torch
     half = kernels.shape[1] // 2
     xp = x.index_select(axis, mirror_index(x.shape[axis], half, x.device))
     return conv1d_valid(xp, kernels, axis)
+
+
+def separable_conv2d_symmetric(x: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
+    """Full separable per-channel convolution of a (..., C, H, W) image:
+    horizontal, then vertical, each mirrored at both ends (conv1d_symmetric)."""
+    return conv1d_symmetric(conv1d_symmetric(x, kernels, axis=-1), kernels, axis=-2)

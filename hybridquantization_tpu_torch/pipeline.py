@@ -72,7 +72,7 @@ def _features(pixels: torch.Tensor, cfg: QuantizationConfig, wp) -> torch.Tensor
 
 
 def _make_context(
-    image_hwc, filters: ScielabFilters, cfg: QuantizationConfig, device="cpu"
+    image_hwc, filters: ScielabFilters, cfg: QuantizationConfig, device="cuda"
 ) -> dict:
     """Device-resident per-image constants for the fitness function."""
     device = torch.device(device)
@@ -95,7 +95,7 @@ def _make_context(
 
 
 def _make_batch_context(
-    images_bhwc, filters: ScielabFilters, cfg: QuantizationConfig, device="cpu"
+    images_bhwc, filters: ScielabFilters, cfg: QuantizationConfig, device="cuda"
 ) -> dict:
     """The per-image contexts of a bucket of same-size images, stacked on a
     leading image axis (each image's built on its own, so it is the one its

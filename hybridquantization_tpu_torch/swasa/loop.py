@@ -32,10 +32,23 @@ from ..config import SWASAConfig
 from . import schedule
 from .state import SWASAState
 
+# fitness: (K, 3) sRGB palette -> (scalar error, (K,) bool usage)
+FitnessFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 # population fitness: ([B,] pop, K, 3) -> (([B,] pop) errors, ([B,] pop, K) bool usage)
 PopFitnessFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 TELEMETRY = ("best_error", "mean_error", "min_error", "std_error")
+
+
+def as_population_fitness(fitness: FitnessFn) -> PopFitnessFn:
+    """Lift a per-palette fitness to a (pop, K, 3) population, member by
+    member (JAX vmaps it; torch.func.vmap cannot map a custom kernel)."""
+
+    def pop_fitness(palettes: torch.Tensor):
+        errors, usage = zip(*(fitness(p) for p in palettes))
+        return torch.stack(errors), torch.stack(usage)
+
+    return pop_fitness
 
 
 def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:

@@ -78,6 +78,12 @@ def _draw(generator: Generators, draw):
     return torch.stack([draw(g) for g in generator])
 
 
+def random_palette(generator: torch.Generator, num_colors: int) -> torch.Tensor:
+    """(K, 3) uniform random initial palette (SWASA.java:40-52), one draw
+    from `generator` on its device."""
+    return torch.rand((num_colors, 3), generator=generator, device=generator.device)
+
+
 def random_palettes(generator: Generators, pop: int, num_colors: int) -> torch.Tensor:
     """(pop, K, 3) uniform random initial palettes (SWASA.java:40-52);
     (B, pop, K, 3) from B generators."""

@@ -1,8 +1,10 @@
-"""The assignment probes on the port's kernels.
+"""The port's tools: the assignment probes, the multi-device tools, and the
+quality-parity tools (`parity_check`, `fitness_parity`, `engine_run`, each
+documented in its module) with `entry`, the flagship's forward step.
 
-Counterparts of the JAX package's TPU probes, named like them and taking
-the same variants and argv, with the "block" argument read as threads per
-CUDA block:
+The probes are counterparts of the JAX package's TPU probes, named like
+them and taking the same variants and argv, with the "block" argument read
+as threads per CUDA block:
 
     python -m hybridquantization_tpu_torch.tools.vpu_assign_exp [variants] [threads]
     python -m hybridquantization_tpu_torch.tools.kexp_assign [variants] [threads] [precision]
@@ -31,15 +33,20 @@ H, W, K, POP = 2160, 3840, 256, 4
 SETS, REPS = 8, 24
 
 
+def smi_line() -> str:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def device_line(device: torch.device) -> str:
     """The card's name and power limit as nvidia-smi prints them, or the CPU."""
     if device.type != "cuda":
         return f"device: {device} (plain versions, host clock)"
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    return f"device: {torch.cuda.get_device_name(device)}; nvidia-smi: {smi}"
+    return f"device: {torch.cuda.get_device_name(device)}; nvidia-smi: {smi_line()}"
 
 
 def ms_per_call(fn, sets, device: torch.device) -> float:

@@ -143,11 +143,15 @@ def test_import_loads_no_jax():
         "import hybridquantization_tpu_torch.tools.minidot_probe\n"
         "import hybridquantization_tpu_torch.tools.bench_multichip\n"
         "import hybridquantization_tpu_torch.tools.dryrun_multichip\n"
+        "import hybridquantization_tpu_torch.tools.parity_check\n"
+        "import hybridquantization_tpu_torch.tools.fitness_parity\n"
+        "import hybridquantization_tpu_torch.tools.engine_run\n"
+        "import hybridquantization_tpu_torch.tools.entry\n"
         "import hybridquantization_tpu_torch.parallel.mesh, hybridquantization_tpu_torch.parallel.multihost\n"
         "import hybridquantization_tpu_torch.parallel.population, hybridquantization_tpu_torch.parallel.halo\n"
         "import hybridquantization_tpu_torch.parallel.sharded, hybridquantization_tpu_torch.parallel.fast\n"
         "import tests._torch_mesh_worker\n"
-        "import chip_smoke, chip_profile, chip_mesh\n"
+        "import chip_smoke, chip_profile, chip_mesh, chip_parity, chip_draws\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('hybridquantization_tpu.') or m == 'hybridquantization_tpu')\n"
         "assert not bad, bad\n"
@@ -176,7 +180,9 @@ def test_cuda_device_without_a_card_fails():
         HybridQuantizer(tcfg.QuantizationConfig())
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py"])
+@pytest.mark.parametrize(
+    "script", ["chip_smoke.py", "chip_profile.py", "chip_parity.py", "chip_draws.py"]
+)
 def test_chip_scripts_refuse_without_a_card(script):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

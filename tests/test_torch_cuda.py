@@ -326,6 +326,21 @@ def test_population_fitness_on_the_card_matches_cpu(cuda_device, space):
     torch.testing.assert_close(e_gpu.cpu(), e_cpu, rtol=0, atol=2e-5)
 
 
+def test_entry_on_the_card_matches_its_cpu_run(cuda_device):
+    """tools.entry's population fitness (B1, B2) against its plain run."""
+    from hybridquantization_tpu_torch.tools.entry import entry
+
+    before = (ak.assign_opp_usage_pop.launches, ff.fused_scielab_err_sums.launches)
+    fn, (pals,) = entry(cuda_device)
+    got = fn(pals)
+    torch.cuda.synchronize()
+    assert (ak.assign_opp_usage_pop.launches, ff.fused_scielab_err_sums.launches) == (
+        before[0] + 1, before[1] + 1)
+    cpu_fn, (cpu_pals,) = entry("cpu")
+    assert torch.equal(pals.cpu(), cpu_pals)
+    torch.testing.assert_close(got.cpu(), cpu_fn(cpu_pals), rtol=0, atol=2e-5)
+
+
 def test_engine_runs_through_both_kernels(cuda_device):
     imax = 6
     q = HybridQuantizer(
