@@ -1,19 +1,42 @@
 #!/usr/bin/env python3
-"""Does the source of the anneal's uniform draws move the port's final ΔE?
+"""Does the draw stream or the score arithmetic move the port's final ΔE?
 
     python3 chip_draws.py [--content natural --size 512 --colors 16 --seeds 0-95
-                           --out docs/evidence_h100/c2/draws_config1nat_host.jsonl]
+                           --draws device|host|jax --assign fp32|split
+                           --counts PATH --out PATH]
 
-The diagnostic of ROADMAP fault C2 (the port's mean ΔE above the JAX
-engine's and the oracle's at config-1 natural). It runs `engine_run`'s
-anneal (imax 1500, population 4, f32x3, sRGB; B1 and B2 on the card) with
-every uniform draw taken instead from a CPU generator (mt19937) seeded with
-the seed, in `schedule.draw_step`'s order, and copied to the card each
-iteration; `find_palette` draws from a generator on the card (Philox). The
-records are `engine_run`'s, with "draws": "host", and are judged by the same
-f64 oracle, so the frozen `tools/parity_report.py` sets them against
-`engine_run`'s bank of the same configuration. Seeds already in the file
-are skipped. Exits non-zero without a CUDA device.
+The diagnostic of ROADMAP fault C2 (the port's mean ΔE above the JAX TPU
+engine's at config-1 natural and config-2). It runs `engine_run`'s anneal
+(imax 1500, population 4, f32x3, sRGB; the fitness on the card) with:
+
+  --draws device      the draws of `find_palette` with a generator on the
+                      card seeded with the seed (Philox): the same run as
+                      `engine_run`'s, seed for seed;
+          host        every draw from a CPU generator (mt19937) seeded with
+                      the seed, in `schedule.draw_step`'s order, copied to
+                      the card each iteration;
+          jax         the JAX engine's own stream for `PRNGKey(seed)`
+                      (`tools.jax_draws.engine_draws`, threefry2x32 as JAX
+                      0.9.0 draws it), copied to the card each iteration; a
+                      bank of it pairs seed by seed with the JAX TPU
+                      engine's bank;
+  --assign fp32       the engine's fitness (B1, fp32 scores, then B2);
+           split      the TPU's f32x3 fitness (`tools.tpu_f32x3`:
+                      split_assign, then B2);
+  --counts PATH       appends, per seed, each iteration's acceptances
+                      (members whose current error took the proposal),
+                      uphill acceptances among them, convergence overwrites
+                      (members that lost the keep-draw) and best
+                      improvements, computed here from the step's tensors
+                      and draws; `loop.run_chunk` is not changed.
+
+The records are `engine_run`'s with "draws" and "assign" fields, judged by
+the same f64 oracle, so the frozen `tools/parity_report.py` sets them
+against any bank of the same configuration. Seeds already in the file are
+skipped. Exits non-zero without a CUDA device.
+
+Imports torch, numpy, scipy (the oracle), the standard library and the
+port; never jax.
 """
 
 from __future__ import annotations
@@ -27,36 +50,98 @@ import time
 import numpy as np
 import torch
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+DRAWS = ("device", "host", "jax")
+ASSIGNS = ("fp32", "split")
+#: the series --counts records per iteration
+COUNTS = ("accepted", "uphill", "overwritten", "improved")
 
-def anneal_host_draws(img, cfg, seed: int, dev) -> np.ndarray:
-    """find_palette's random-init anneal, its draws from a CPU generator."""
-    from hybridquantization_tpu_torch.pipeline import _make_context, make_population_fitness
+
+def _fitness(ctx, cfg, assign: str):
+    from hybridquantization_tpu_torch.pipeline import make_population_fitness
+    from hybridquantization_tpu_torch.tools.tpu_f32x3 import make_split_population_fitness
+
+    return (make_split_population_fitness if assign == "split" else make_population_fitness)(ctx, cfg)
+
+
+def _draw_source(draws: str, seed: int, pop: int, K: int, dev):
+    """(start palettes on `dev` or None for the card generator's own, the
+    generator init_state takes, draws() -> the next iteration's draws on `dev`)."""
+    from hybridquantization_tpu_torch.swasa import schedule
+    from hybridquantization_tpu_torch.tools import jax_draws
+
+    if draws == "device":
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return None, g, lambda: schedule.draw_step(g, pop, K)
+    if draws == "host":
+        g = torch.Generator().manual_seed(seed)
+        init = schedule.random_palettes(g, pop, K).to(dev)
+        return init, torch.Generator(device=dev), lambda: {
+            k: v.to(dev) for k, v in schedule.draw_step(g, pop, K).items()}
+    stream = jax_draws.engine_draws(seed, pop, K)
+    init = torch.from_numpy(next(stream)).to(dev)
+    return init, torch.Generator(device=dev), lambda: {
+        k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+
+
+def anneal(img, cfg, seed: int, dev, draws: str = "device", assign: str = "fp32",
+           counts: bool = False):
+    """find_palette's random-init anneal with the chosen draws and fitness:
+    (best palette (K, 3) float64, {series: (imax,) int} or None)."""
+    from hybridquantization_tpu_torch.pipeline import _make_context
     from hybridquantization_tpu_torch.scielab.filters import build_filters
     from hybridquantization_tpu_torch.swasa import loop, schedule
 
-    fit = make_population_fitness(_make_context(img, build_filters(), cfg, dev), cfg)
-    g = torch.Generator().manual_seed(seed)
-    pop, K = cfg.swasa.population, cfg.swasa.num_colors
-    init = schedule.random_palettes(g, pop, K).to(dev)
-    state = loop.init_state(torch.Generator(device=dev), fit, cfg.swasa, init)
-    step = loop.make_step(fit, cfg.swasa)
-    for ite in range(1, cfg.swasa.imax + 1):
-        draws = {k: v.to(dev) for k, v in schedule.draw_step(g, pop, K).items()}
-        state, _ = step(state, torch.tensor(ite, dtype=torch.int32, device=dev), draws)
-    return state.best_colors.cpu().numpy().astype(np.float64)
+    sw = cfg.swasa
+    fit = _fitness(_make_context(img, build_filters(), cfg, dev), cfg, assign)
+    seen = {}
+
+    def fitness(p):
+        seen["errors"], usage = fit(p)
+        return seen["errors"], usage
+
+    init, gen, source = _draw_source(draws, seed, sw.population, sw.num_colors, dev)
+    state = loop.init_state(gen, fitness, sw, init)
+    step = loop.make_step(fitness, sw)
+    rows = torch.zeros((sw.imax, len(COUNTS)), dtype=torch.int32, device=dev) if counts else None
+    for i in range(sw.imax):
+        d = source()
+        ite = torch.tensor(i + 1, dtype=torch.int32, device=dev)
+        new, _ = step(state, ite, d)
+        if counts:
+            gap = seen["errors"] - state.current_errors
+            accepted = schedule.accept(gap, new.temperature[..., None], d["acc"])
+            lost = ~schedule.keeps_values(ite, sw.conv_delay, sw.conv_spread, sw.imax, d["conv"])
+            if not (sw.convergence and sw.population > 1):
+                lost = torch.zeros_like(lost)
+            rows[i] = torch.stack([accepted.sum(), (accepted & (gap > 0)).sum(), lost.sum(),
+                                   (new.best_error < state.best_error).sum()]).to(torch.int32)
+        state = new
+    palette = state.best_colors.cpu().numpy().astype(np.float64)
+    if not counts:
+        return palette, None
+    series = rows.cpu().numpy()
+    return palette, {k: series[:, j].tolist() for j, k in enumerate(COUNTS)}
 
 
-def main(argv=None) -> int:
+def parse_args(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--content", default="natural", choices=["smooth", "natural"])
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--colors", type=int, default=16)
     ap.add_argument("--imax", type=int, default=1500)
     ap.add_argument("--seeds", default="0-95")
-    ap.add_argument("--out", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
-                                                  "evidence_h100", "c2", "draws_config1nat_host.jsonl"))
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
+    ap.add_argument("--draws", default="host", choices=DRAWS)
+    ap.add_argument("--assign", default="fp32", choices=ASSIGNS)
+    ap.add_argument("--counts", default="", help="append per-iteration counts per seed here")
+    ap.add_argument("--out", default=os.path.join(REPO, "docs", "evidence_h100", "c2",
+                                                  "draws_config1nat_host.jsonl"))
+    return ap.parse_args(argv)
+
+
+def main(argv=None, *, device="cuda") -> int:
+    args = parse_args(argv)
+    if device == "cuda" and not torch.cuda.is_available():
         print("chip_draws: no CUDA device; nothing to run", file=sys.stderr)
         return 1
     from hybridquantization_tpu_torch import QuantizationConfig, SWASAConfig
@@ -65,28 +150,34 @@ def main(argv=None) -> int:
     from hybridquantization_tpu_torch.tools.engine_run import done_seeds, parse_seeds
     from hybridquantization_tpu_torch.tools.parity_check import content_image, judge_target, quality
 
-    dev = setup_device("cuda")
+    dev = setup_device(device)
     done = done_seeds(args.out)
     todo = [s for s in parse_seeds(args.seeds) if s not in done]
     print(f"seeds todo {todo} (already done: {sorted(done)})", flush=True)
     img = content_image(args.content, args.size)
     target64 = judge_target(img)
     cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=args.colors, population=4, imax=args.imax))
-    device_name = smi_line()
+    device_name = smi_line() if dev.type == "cuda" else "cpu"
     for i, s in enumerate(todo):
         t0 = time.time()
-        palette = anneal_host_draws(img, cfg, s, dev)
+        palette, series = anneal(img, cfg, s, dev, args.draws, args.assign, bool(args.counts))
         t_anneal = time.time() - t0
         de, mse = quality(img, palette, target64)
         rec = {"seed": s, "deltaE": de, "mse": mse, "precision": "f32x3", "size": args.size,
                "colors": args.colors, "imax": args.imax, "population": 4, "content": args.content,
                "assignment_space": "srgb", "anneal_seconds": round(t_anneal, 3), "engine": "torch",
-               "device": device_name, "draws": "host"}
+               "device": device_name, "draws": args.draws, "assign": args.assign}
         if i == 0:
             rec["compile_inclusive"] = True
+        if series is not None:
+            with open(args.counts, "a") as f:
+                f.write(json.dumps({"seed": s, "draws": args.draws, "assign": args.assign,
+                                    "deltaE": de, **series}) + "\n")
         with open(args.out, "a") as f:
             f.write(json.dumps(rec) + "\n")
-        print(f"[host draws] {rec}", flush=True)
+            f.flush()
+            os.fsync(f.fileno())
+        print(f"[{args.draws} draws, {args.assign}] {rec}", flush=True)
     return 0
 
 

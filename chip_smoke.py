@@ -18,13 +18,17 @@ kernel with any filter, and the two-pass one) and at 123 taps (above the
 fused kernel's limit) through the two-pass path on the 1024x768 frame,
 prints B2's peak device memory per launch (4K/pop4, each batch bucket),
 checks the annealing slice and the exact Lloyd polish against the plain
-path on small inputs, then drives six paths at full width, each with the
+path on small inputs, then drives seven paths at full width, each with the
 launch counts set to 0 just before it and read just after:
 
   parity            layer 2 of docs/PARITY.md at config-1 (512x512, K=16,
                     smooth): `tools.fitness_parity`, 2 batches of 4 random
                     palettes through B1 and B2 against the f64 oracle
                     (`tests/oracle.py`); it must print PASS at 1e-3;
+  tpu_f32x3         fault C2's emulation of the TPU's f32x3 fitness
+                    (`tools.tpu_f32x3`: split_assign, then B2) at config-1
+                    natural, one batch of 4 palettes: against its plain
+                    version, split_assign against its own, flips against B1;
   e2e               random init, imax=30: `HybridQuantizer(...).run` and
                     `error_image` (B1, B2; B3 in quantize);
   quality schedule  k-means seeds, imax=50, `.polish` (histogram at 4K),
@@ -149,6 +153,9 @@ PARITY_ARGS = ["--content", "smooth", "--size", "512", "--colors", "16", "--pale
 # against a sequential sum of the same 12 exact products, relative to
 # max(1, |score|) (4.8e-7 measured at 4K)
 SPLIT_RTOL = 1e-6
+# the emulated f32x3 fitness (split_assign, then B2) on the card against its
+# plain version: B2's fp32 sums in another order, and near-tie winners
+TPU_F32X3_RTOL = 1e-5
 # bf16 row maxima that may round the other way from plain (1e-5 measured at 4K;
 # a truncating kernel puts about half of them one ulp off)
 BF16_OFF_SHARE = 1e-4
@@ -1180,6 +1187,69 @@ def phase_parity() -> dict:
     return launches
 
 
+def phase_tpu_f32x3(dev) -> tuple[dict, dict]:
+    """Fault C2's emulation of the TPU's f32x3 fitness (`tools.tpu_f32x3`:
+    split_assign at f32x3, then B2) at config-1 (512x512 natural, K=16,
+    pop 4) on one batch of 4 random palettes, the counts set to 0 just
+    before and read just after: the fitness on the card against its plain
+    version (the CPU context's) within TPU_F32X3_RTOL; split_assign
+    against its plain version on the card's operands by
+    `_check_split_first`; its flips against B1 (fp32) printed.
+    Returns (launches, the split_assign row at this shape)."""
+    from hybridquantization_tpu_torch import QuantizationConfig, SWASAConfig
+    from hybridquantization_tpu_torch import colorspace as cs
+    from hybridquantization_tpu_torch.ops import assign_kernel as ak
+    from hybridquantization_tpu_torch.ops import probe_kernels as pk
+    from hybridquantization_tpu_torch.pipeline import _make_context
+    from hybridquantization_tpu_torch.scielab.filters import build_filters
+    from hybridquantization_tpu_torch.tools import pack_pixels, tpu_f32x3
+    from hybridquantization_tpu_torch.tools.parity_check import content_image
+
+    size, k, pop = 512, 16, 4
+    img = content_image("natural", size)
+    cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=k, population=pop))
+    pals = torch.rand((pop, k, 3), generator=torch.Generator().manual_seed(4))
+    ctx = _make_context(img, build_filters(), cfg, dev)
+    fit = tpu_f32x3.make_split_population_fitness(ctx, cfg)
+    pals_dev = pals.to(dev)
+    _reset_counts()
+    err, _ = fit(pals_dev)
+    torch.cuda.synchronize()
+    launches = _counts()
+    if launches["split_assign"] == 0 or launches["fused_fitness"] == 0 or launches["assign_pop"]:
+        fail(f"tpu_f32x3 fitness launched {launches}: split_assign and B2, and not B1")
+    plain = tpu_f32x3.make_split_population_fitness(_make_context(img, build_filters(), cfg, "cpu"), cfg)
+    want, _ = plain(pals)
+    rel = float(((err.cpu() - want).abs() / want.abs()).max())
+    if not rel <= TPU_F32X3_RTOL:
+        fail(f"tpu_f32x3 fitness on the card against its plain version: max relative gap {rel}")
+    x4 = pack_pixels(ctx["assign_pixels"])
+    c4, o4 = pk.pack_palette(pals_dev, cs.srgb_to_opp(pals_dev))
+    (opp, counts, idx), (p_opp, p_counts, p_idx), plain_ms = _versus(
+        lambda *a: pk.split_assign(*a, return_index=True),
+        lambda *a: pk.split_assign_reference(*a, return_index=True), x4, c4, o4)
+    n, count = _check_split_first("tpu_f32x3 split_assign", x4, c4, (opp, counts, idx), (p_opp, p_counts, p_idx))
+    ms = cuda_ms(lambda: pk.split_assign(x4, c4, o4), 20)
+    P = size * size
+    b = split_bound(P, k, pop, 4.0 * (4 * P + 8 * pop * k + 3 * pop * P + pop * k), 2)
+    _, _, b1_idx = ak.assign_opp_usage_pop(ctx["assign_pixels"], pals_dev, cs.srgb_to_opp(pals_dev),
+                                           return_index=True)
+    flips = (idx != b1_idx).float().mean(1).tolist()
+    fit_ms = cuda_ms(lambda: fit(pals_dev), 20)
+    print(f"tpu_f32x3 config-1 natural 512x512 K={k} pop={pop}: split fitness on the card vs plain max "
+          f"rel gap {rel:.3g} <= {TPU_F32X3_RTOL} ({fit_ms:.3f} ms an evaluation); split_assign "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), {n} "
+          f"winners off plain (near ties); flips against B1 (fp32) per member "
+          + " ".join(f"{f:.3e}" for f in flips) + f"; launches {launches}")
+    row = {"variant": "T4 f32x3 (tpu_f32x3, config-1 natural)", "replaces": "tools/kexp_assign.py:271",
+           "ms": ms, "plain_ms": plain_ms, **b, "K": k, "P": P,
+           "max_abs_err": float((opp - p_opp).abs().max()), "winner_mismatches": n,
+           "count_mismatches": count, "fitness_max_rel_gap": rel,
+           "flips_against_b1": flips, "launches_from": "tpu_f32x3_config1",
+           "launches": launches["split_assign"]}
+    return launches, row
+
+
 def phase_e2e(img, dev) -> tuple[dict, float]:
     from hybridquantization_tpu_torch import HybridQuantizer, QuantizationConfig, SWASAConfig
 
@@ -1239,6 +1309,27 @@ def _versus(kern, plain, x4, c, o=None):
     got = kern(x4, c, o)
     torch.cuda.synchronize()
     return got, want, t * 1e3
+
+
+def _check_split_first(what: str, x4, c, got, want) -> tuple[int, int]:
+    """First-index split_assign (dense, opp_parts=3) against its plain
+    version: winners differ only in the near-tie class; where they agree the
+    colour is bit-equal (the 3-part gather is exact); each differing winner
+    moves one pixel between two counts, which sum to P. Returns (differing
+    winners, count mismatches)."""
+    (opp, counts, idx), (p_opp, p_counts, p_idx) = got, want
+    same = idx == p_idx
+    if not torch.equal(opp.transpose(1, 2)[same], p_opp.transpose(1, 2)[same]):
+        fail(f"{what}: the colour differs from the plain version's where the winners agree")
+    n, worst, _ = _split_near_ties(x4, c, None, ~same)
+    if n and worst > NEAR_TIE_REL:
+        fail(f"{what}: {n} winners off plain, gap up to {worst:.3g} > {NEAR_TIE_REL}")
+    count = int((counts - p_counts).abs().sum())
+    total = counts.sum(1)
+    if count > 2 * n or not bool((total == x4.shape[1]).all()):
+        fail(f"{what}: {count} count mismatches for {n} differing winners (limit {2 * n}), counts "
+             f"sum to {total.tolist()} ({x4.shape[1]} px)")
+    return n, count
 
 
 def _split_near_ties(x4, c, run, mask) -> tuple[int, float, int]:
@@ -1820,6 +1911,7 @@ def main() -> int:
     phase_small_slice(dev)
     phase_small_polish(dev)
     parity = phase_parity()
+    f32x3, f32x3_row = phase_tpu_f32x3(dev)
     launches, random_de = phase_e2e(img, dev)
     quality, exact = phase_quality_schedule(img, dev, random_de)
     cli_counts = phase_cli(dev)
@@ -1858,6 +1950,7 @@ def main() -> int:
     def by_path(name_):
         return {**{path: counts[name_] for path, counts in mesh_paths.items()},
                 "e2e_random_imax30": launches[name_], "fitness_parity_config1": parity[name_],
+                "tpu_f32x3_config1": f32x3[name_],
                 "quality_schedule": quality[name_],
                 "exact_polish_4k": exact[name_], "cli_quantize": cli_counts[name_],
                 "fast_schedule": fast[name_], "quantize_batch_64": batch["launches"][name_],
@@ -1885,6 +1978,10 @@ def main() -> int:
             "checks": checks, "launches_by_path": by_path(name_),
         })
     kernels += probe_kernel_rows(probes, probe_paths, by_path)
+    # split_assign also runs on the f32x3 emulation's path (C2's diagnostics)
+    split_row = next(r for r in kernels if r["name"] == "split_assign")
+    split_row["variants"].append({**{k: split_row[k] for k in ("name", "route", "source")}, **f32x3_row})
+    split_row["launches"] += f32x3["split_assign"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -89,7 +89,8 @@ def parse_args(argv):
     return ap.parse_args(argv)
 
 
-def main(argv=None, *, device="cuda") -> int:
+def main(argv=None, *, device="cuda", evaluator=None) -> int:
+    """Layer 2 with `evaluator(img, cfg, device)` (default `engine_fitness`)."""
     args = parse_args(argv)
     from .. import QuantizationConfig, SWASAConfig
     from ..pipeline import setup_device
@@ -103,7 +104,7 @@ def main(argv=None, *, device="cuda") -> int:
         swasa=SWASAConfig(num_colors=args.colors, population=args.population),
         precision=args.precision, conv_precision=args.conv_precision,
     )
-    evaluate = engine_fitness(img, cfg, dev)
+    evaluate = (evaluator or engine_fitness)(img, cfg, dev)
     ofilters, abs_k3 = judge_filters()
     target = judge_target(img)
     img64 = img.astype(np.float64)
