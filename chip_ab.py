@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time B1 and B3 of one checkout on fixed random inputs, to compare two
+"""Time B1, B2 and B3 of one checkout on fixed random inputs, to compare two
 commits of the port on one GPU.
 
-    python3 chip_ab.py PATH
+    python3 chip_ab.py PATH [--only b2]
 
 PATH is the root of a checkout; its `hybridquantization_tpu_torch` is the
 one imported (and built at first use). Run it for each checkout in turns
@@ -12,6 +12,10 @@ one JSON line of milliseconds a call (CUDA events after warm-up) on random
 inputs from seed 0, K=256:
 
   b1_first_f32_4k, b1_average_bf16_4k   B1 at 3840x2160, population 4
+  b2_f32_4k, b2_split_4k                B2 at 3840x2160, population 4, the
+                                        default 21 taps, in the fp32 mode and
+                                        in the split mode (the TPU's f32x3;
+                                        null where the checkout has none)
   b3_index_4k                           B3's nearest index, one palette
   lloyd_step_4k                         one Lloyd step, ops.assign.lloyd_step
   seeding_step_bucket_64x32768          one k-means Lloyd step of a bucket:
@@ -34,7 +38,8 @@ calls, which a parent checkout takes as well:
 
 A checkout whose B3 has no batched Lloyd step (`assign_kernel.lloyd_step`)
 runs the problems one at a time through ops.kmeans.lloyd_steps_weighted,
-as its engine did. Exits non-zero without a CUDA device.
+as its engine did. With `--only b2` it times B2 alone. Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -98,7 +103,27 @@ def probes(torch, dev) -> dict:
     return {name: ms(fn, 20) for name, fn in calls.items()}
 
 
-def main(root: str) -> int:
+def b2(torch, dev, g) -> dict:
+    """Milliseconds a call of B2 at 4K/pop4 on random opponent images."""
+    from hybridquantization_tpu_torch import colorspace as cs
+    from hybridquantization_tpu_torch.ops import fused_fitness as ff
+    from hybridquantization_tpu_torch.scielab.filters import build_filters
+    from hybridquantization_tpu_torch.scielab.transform import stacked_kernels
+
+    h, w = 2160, 3840
+    q = torch.movedim(cs.srgb_to_opp(torch.rand((4, h, w, 3), generator=g).to(dev)), -1, 1).contiguous()
+    target = torch.movedim(cs.srgb_to_lab(torch.rand((h, w, 3), generator=g).to(dev)), -1, 0).contiguous()
+    f = build_filters()
+    kh, kv = stacked_kernels(f, False, dev), stacked_kernels(f, True, dev)
+    args = (q, target, kh, kv, cs.WHITEPOINT_D65, "CIE76")
+    host = {"taps_on_host": ff.kernel_taps(kh, kv)}
+    split = "split" in getattr(ff, "CONV_PRECISIONS", ())
+    return {"b2_f32_4k": ms(lambda: ff.fused_scielab_err_sums(*args, **host), 20),
+            "b2_split_4k": ms(lambda: ff.fused_scielab_err_sums(*args, precision="split", **host), 20)
+            if split else None}
+
+
+def main(root: str, only: str = "") -> int:
     sys.path.insert(0, root)
     import torch
 
@@ -113,6 +138,9 @@ def main(root: str) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip())
     dev = torch.device("cuda")
+    if only == "b2":
+        print(json.dumps({"root": root, **b2(torch, dev, torch.Generator().manual_seed(1))}))
+        return 0
     g = torch.Generator().manual_seed(0)
     px = torch.rand((2160 * 3840, 3), generator=g).to(dev)
     pals = torch.rand((4, 256, 3), generator=g).to(dev)
@@ -121,6 +149,7 @@ def main(root: str) -> int:
     out["b1_first_f32_4k"] = ms(lambda: ak.assign_opp_usage_pop(px, pals, opps), 20)
     out["b1_average_bf16_4k"] = ms(
         lambda: ak.assign_opp_usage_pop(px, pals, opps, precision="bf16", tie_mode="average"), 20)
+    out.update(b2(torch, dev, torch.Generator().manual_seed(1)))
     out["b3_index_4k"] = ms(lambda: ak.assign_idx(px, pals[0]), 20)
     out["lloyd_step_4k"] = ms(lambda: ao.lloyd_step(px, pals[0]), 10)
     images = torch.rand((16, 1080 * 1920, 3), generator=g).to(dev) * 0.8
@@ -151,7 +180,7 @@ def main(root: str) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 4) or (len(sys.argv) == 4 and sys.argv[2:] != ["--only", "b2"]):
         print(__doc__, file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(sys.argv[1], "b2" if len(sys.argv) == 4 else ""))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Fault C2's diagnostics on one GPU, resumable, into docs/evidence_h100/c2/.
 
-    python3 chip_c2.py [--stages layer2,banks,reports] [--deadline SECONDS]
+    python3 chip_c2.py [--stages layer2,fingerprint,banks,reports] [--deadline SECONDS]
                        [--oracle config1nat:5,config2:2] [--out DIR]
 
 Run from the root of a checkout. ROADMAP fault C2: the port's annealed mean
@@ -13,21 +13,42 @@ config-2 (1024x1024, K=64, smooth). Stages:
            config-2, smooth and natural, `fitness_parity`'s protocol (12
            batches of 4 random palettes) against the f64 oracle: fitness
            gap and split_assign's flips; one log each;
+  fingerprint
+           layer 2 with the whole TPU fitness emulated (split_assign and
+           B2's split mode, `tpu_f32x3 --conv split`) at the three
+           configurations with a TPU layer-2 log (`FINGERPRINT`); then, per
+           palette (the same `default_rng(7)` draws on both sides, the
+           tie-stress batch 0 left out), |TPU gap - port gap| of the "rel
+           fitness gap" lines, for the port's fp32 fitness (its layer-2 logs in
+           docs/evidence_h100/), split_assign with fp32 B2 (layer2 above)
+           and the whole emulation, and, where its log is in the directory
+           (`fitness_parity_jaxcpu_<config>.log`, made on a CPU by
+           `tests/jax_cpu_layer2.py`), the JAX engine's own f32x3 fitness
+           off the TPU, with |whole emulation - JAX on the CPU| beside
+           them: one `fingerprint_<config>.txt` each, with the max and
+           median of each column; no anneal, no seed noise;
   banks    through `chip_draws.py` (imax 1500, pop 4), in `BANKS` order:
-           (b) `--assign split --draws device`, config-1 natural seeds
+           (b) `--fitness split --draws device`, config-1 natural seeds
                0-191 and config-2 seeds 0-95, seeds 0-23 with `--counts`;
            (e) the fp32 engine's seeds 0-23 again with `--counts` (the
                same runs as the fp32 banks in this directory), last;
-           (c) `--assign fp32 --draws jax` and (d) `--assign split --draws
-               jax`, seeds 0-95 at each configuration, which pair seed by
+           (c) `--fitness fp32 --draws jax` and (d) `--fitness split
+               --draws jax`, seeds 0-95 at each configuration, which pair seed by
                seed with the JAX TPU engine's banks, and (c') the fp32
                engine on JAX's streams of seeds 96-191, which no JAX bank
                holds;
+           (f) the fp32 engine's seeds 0-7 at config-1 natural once more
+               (`_rerun`), which must equal bank (e) bit for bit;
+           (g) the whole emulation (`--fitness f32x3`) on JAX's streams,
+               seeds 0-95 at each configuration, paired with the JAX banks;
   reports  every bank against the JAX TPU bank and the oracle bank by the
-           frozen `tools/parity_report.py`; for (c) and (d) the paired
-           per-seed difference from the JAX bank (mean ± SE), Pearson r
-           and the seeds within 1e-3 relative; the counts by window of 150
-           iterations, fp32 beside split.
+           frozen `tools/parity_report.py` (`report_<bank>_vs_jax.txt`,
+           `report_<bank>_vs_oracle_n<seeds the oracle holds>.txt`, so a
+           grown oracle adds reports and keeps the earlier ones); for (c),
+           (d) and (g) the
+           paired per-seed difference from the JAX bank (mean ± SE),
+           Pearson r and the seeds within 1e-3 relative; the counts by
+           window of 150 iterations, fp32 beside split; (f) against (e).
 
 `--oracle CONFIG:JOBS,...` runs the oracle's own seeds on this host's CPU
 beside the card's work (`tools.oracle_run`, one process group, stopped at
@@ -38,7 +59,8 @@ of the call) have passed; every stage resumes from the files in `--out`
 (default docs/evidence_h100/c2; a run whose outputs must be fetched from
 another directory copies the evidence there first). Prints nproc first.
 Exits non-zero on an error, on a layer-2 run that does not PASS (run
-again on resume), or without a CUDA device.
+again on resume), on a rerun that differs from its bank, or without a
+CUDA device.
 
 Imports torch, numpy, scipy (the oracle), the standard library and the
 port; never jax.
@@ -51,8 +73,10 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import signal
+import statistics
 import subprocess
 import sys
 import time
@@ -61,7 +85,8 @@ from chip_parity import VERDICT, _Tee, _verdict, report
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 EVIDENCE = os.path.join(REPO, "docs", "evidence")
-C2 = os.path.join(REPO, "docs", "evidence_h100", "c2")
+H100 = os.path.join(REPO, "docs", "evidence_h100")
+C2 = os.path.join(H100, "c2")
 
 #: name: (content, size, colors, JAX TPU bank, oracle bank to continue, its last seed,
 #:        the port's fp32 device bank)
@@ -74,9 +99,14 @@ CONFIGS = {
 LAYER2 = (("config1", "smooth", 512, 16), ("config1nat", "natural", 512, 16),
           ("config2", "smooth", 1024, 64), ("config2nat", "natural", 1024, 64))
 LAYER2_ARGS = ["--palettes", "12", "--population", "4", "--tolerance", "1e-3"]
-#: (config, assign, draws, seeds, seeds with --counts, file tag), in the order they run;
+#: the configurations with a TPU layer-2 log (docs/evidence/): name, content, size, colors, log
+FINGERPRINT = (("config1", "smooth", 512, 16, "fitness_parity_config1_r04.log"),
+               ("config2", "smooth", 1024, 64, "fitness_parity_config2_r04.log"),
+               ("config2nat", "natural", 1024, 64, "fitness_parity_config2nat_r05.log"))
+#: (config, chip_draws --fitness, draws, seeds, seeds with --counts, file tag), in the order they run;
 #: the fp32 banks on JAX's streams of seeds 96-191, which no JAX bank holds,
-#: tell a low sample of streams from a property of the stream
+#: tell a low sample of streams from a property of the stream; a bank tagged
+#: "_rerun" repeats seeds of its untagged bank and must equal it bit for bit
 BANKS = (
     ("config1nat", "split", "device", "0-191", "0-23", ""),
     ("config1nat", "fp32", "jax", "0-95", "", ""),
@@ -88,6 +118,9 @@ BANKS = (
     ("config2", "split", "jax", "0-95", "", ""),
     ("config1nat", "fp32", "device", "0-23", "0-23", ""),
     ("config2", "fp32", "device", "0-23", "0-23", ""),
+    ("config1nat", "fp32", "device", "0-7", "", "_rerun"),
+    ("config1nat", "f32x3", "jax", "0-95", "", ""),
+    ("config2", "f32x3", "jax", "0-95", "", ""),
 )
 #: seeds a chip_draws call takes, so that the deadline is checked between calls
 BATCH = 8
@@ -97,8 +130,8 @@ WINDOW = 150
 IMAX = 1500
 
 
-def bank_path(out: str, config: str, assign: str, draws: str, tag: str = "") -> str:
-    return os.path.join(out, f"draws_{config}_{assign}_{draws}{tag}.jsonl")
+def bank_path(out: str, config: str, fitness: str, draws: str, tag: str = "") -> str:
+    return os.path.join(out, f"draws_{config}_{fitness}_{draws}{tag}.jsonl")
 
 
 def counts_path(out: str, config: str, assign: str, draws: str) -> str:
@@ -121,23 +154,91 @@ def load(path: str) -> dict:
     return out
 
 
-def layer2(out: str, device) -> dict:
-    """Each layer-2 run's verdict line; runs those whose log has no PASS
-    (none yet, or a FAIL, which is run again)."""
+def _layer2_run(log: str, name: str, content: str, size: int, colors: int, conv: str, device) -> str:
+    """The verdict line of `log`, a layer-2 run with the emulated fitness
+    (B2 by `conv`); runs it when the log has no PASS (none yet, or a FAIL,
+    which is run again)."""
     from hybridquantization_tpu_torch.tools import tpu_f32x3
 
-    verdicts = {}
-    for name, content, size, colors in LAYER2:
-        log = os.path.join(out, f"fitness_parity_split_{name}.log")
-        if not _passed(_verdict(log)):
-            t0 = time.perf_counter()
-            argv = ["--content", content, "--size", str(size), "--colors", str(colors), *LAYER2_ARGS]
-            print(f"[layer 2 split] {name}: tpu_f32x3 {' '.join(argv)}", flush=True)
-            with open(log, "w") as f, contextlib.redirect_stdout(_Tee(f)):
-                rc = tpu_f32x3.main(argv, device=device)
-            print(f"[layer 2 split] {name}: exit {rc}, {time.perf_counter() - t0:.1f} s", flush=True)
-        verdicts[name] = _verdict(log)
-    return verdicts
+    if not _passed(_verdict(log)):
+        t0 = time.perf_counter()
+        argv = ["--content", content, "--size", str(size), "--colors", str(colors), *LAYER2_ARGS,
+                "--conv", conv]
+        print(f"[layer 2 {conv}] {name}: tpu_f32x3 {' '.join(argv)}", flush=True)
+        with open(log, "w") as f, contextlib.redirect_stdout(_Tee(f)):
+            rc = tpu_f32x3.main(argv, device=device)
+        print(f"[layer 2 {conv}] {name}: exit {rc}, {time.perf_counter() - t0:.1f} s", flush=True)
+    return _verdict(log)
+
+
+def layer2(out: str, device) -> dict:
+    """Each layer-2 run's verdict line (split_assign, fp32 B2)."""
+    return {name: _layer2_run(os.path.join(out, f"fitness_parity_split_{name}.log"), name, content, size,
+                              colors, "fp32", device)
+            for name, content, size, colors in LAYER2}
+
+
+def parse_gaps(path: str) -> dict:
+    """{(batch, member): rel fitness gap} of a layer-2 log's batch lines."""
+    gaps = {}
+    with open(path) as f:
+        for line in f:
+            m = re.match(r"batch (\d+): rel fitness gap ((?:\S+ )+) assign flips", line)
+            if m:
+                for member, gap in enumerate(m.group(2).split()):
+                    gaps[(int(m.group(1)), member)] = float(gap)
+    return gaps
+
+
+def fingerprint_table(name: str, tpu_log: str, ports: dict, pairs: tuple = ()) -> tuple[str, dict]:
+    """Per palette of batches 1 and up that the TPU's log and every log of
+    `ports` ({column: path}) hold, |TPU gap - port gap|, and for each (a, b)
+    of `pairs` (two columns) |a gap - b gap|; then each column's max and
+    median. Returns (text, {column or "a-b": (max, median)})."""
+    tpu = parse_gaps(tpu_log)
+    cols = {col: parse_gaps(path) for col, path in ports.items()}
+    keys = sorted(k for k in tpu if k[0] > 0 and all(k in c for c in cols.values()))
+    lines = [f"fingerprint {name}: |TPU gap - port gap| per palette, the \"rel fitness gap\" against the "
+             f"f64 oracle of fitness_parity's protocol (palettes from default_rng(7) on both sides; the "
+             f"tie-stress batch 0 left out); TPU {os.path.basename(tpu_log)}, ports "
+             + ", ".join(f"{c} {os.path.relpath(p, REPO)}" for c, p in ports.items())
+             + f"; {len(keys)} palettes",
+             "batch member  TPU gap   " + " ".join(f"{c:>10} |TPU-{c}|" for c in cols)
+             + "".join(f" |{a}-{b}|" for a, b in pairs)]
+    for b, m in keys:
+        lines.append(f"{b:5d} {m:6d}  {tpu[(b, m)]:.2e}  " + " ".join(
+            f"{c[(b, m)]:10.2e} {abs(tpu[(b, m)] - c[(b, m)]):10.2e}" for c in cols.values())
+            + "".join(f" {abs(cols[p][(b, m)] - cols[q][(b, m)]):{len(p) + len(q) + 3}.2e}" for p, q in pairs))
+    diffs = {col: [abs(tpu[k] - c[k]) for k in keys] for col, c in cols.items()}
+    diffs.update({f"{a}-{b}": [abs(cols[a][k] - cols[b][k]) for k in keys] for a, b in pairs})
+    stats = {col: (max(d), statistics.median(d)) if d else (math.nan, math.nan) for col, d in diffs.items()}
+    lines.append("|TPU - port|: " + "; ".join(f"{col} max {stats[col][0]:.3e} median {stats[col][1]:.3e}"
+                                              for col in cols)
+                 + "".join(f"; |{a} - {b}| max {stats[f'{a}-{b}'][0]:.3e} median {stats[f'{a}-{b}'][1]:.3e}"
+                           for a, b in pairs))
+    return "\n".join(lines), stats
+
+
+def fingerprint(out: str, device) -> dict:
+    """Layer 2 with the whole emulated fitness at FINGERPRINT's
+    configurations, then each one's fingerprint file: {config: (verdict,
+    {column: (max, median)})}."""
+    results = {}
+    for name, content, size, colors, tpu_log in FINGERPRINT:
+        log = os.path.join(out, f"fitness_parity_f32x3_{name}.log")
+        verdict = _layer2_run(log, name, content, size, colors, "split", device)
+        ports = {"fp32": os.path.join(H100, f"fitness_parity_{name}.log"),
+                 "split": os.path.join(out, f"fitness_parity_split_{name}.log"), "f32x3": log}
+        jax_cpu = os.path.join(out, f"fitness_parity_jaxcpu_{name}.log")
+        pairs = ()
+        if os.path.exists(jax_cpu):
+            ports["jax_cpu"], pairs = jax_cpu, (("f32x3", "jax_cpu"),)
+        text, stats = fingerprint_table(name, os.path.join(EVIDENCE, tpu_log), ports, pairs)
+        with open(os.path.join(out, f"fingerprint_{name}.txt"), "w") as f:
+            f.write(text + "\n")
+        print(f"[fingerprint] {name}: {text.splitlines()[-1]}", flush=True)
+        results[name] = (verdict, stats)
+    return results
 
 
 def _passed(verdict: str | None) -> bool:
@@ -148,9 +249,9 @@ def banks(out: str, deadline: float, device="cuda") -> None:
     import chip_draws
     from hybridquantization_tpu_torch.tools.engine_run import parse_seeds
 
-    for config, assign, draws, seeds, counted, tag in BANKS:
+    for config, fitness, draws, seeds, counted, tag in BANKS:
         content, size, colors = CONFIGS[config][:3]
-        bank = bank_path(out, config, assign, draws, tag)
+        bank = bank_path(out, config, fitness, draws, tag)
         done = set(load(bank))
         todo = [s for s in parse_seeds(seeds) if s not in done]
         counted = set(parse_seeds(counted))
@@ -161,9 +262,9 @@ def banks(out: str, deadline: float, device="cuda") -> None:
             batch = [s for s in todo if (s in counted) == with_counts][:BATCH]
             argv = ["--content", content, "--size", str(size), "--colors", str(colors),
                     "--imax", str(IMAX), "--seeds", ",".join(map(str, batch)), "--draws", draws,
-                    "--assign", assign, "--out", bank]
+                    "--fitness", fitness, "--out", bank]
             if with_counts:
-                argv += ["--counts", counts_path(out, config, assign, draws)]
+                argv += ["--counts", counts_path(out, config, fitness, draws)]
             if chip_draws.main(argv, device=device) != 0:
                 raise RuntimeError(f"chip_draws {' '.join(argv)} failed")
             todo = [s for s in todo if s not in batch]
@@ -254,6 +355,25 @@ def counts_table(paths: list) -> str:
     return "\n".join(lines)
 
 
+def reruns(out: str) -> bool:
+    """Each "_rerun" bank against the bank it repeats, ΔE bit for bit, one
+    `rerun_<bank>.txt` each; True when every seed is equal."""
+    ok = True
+    for config, fitness, draws, *_, tag in BANKS:
+        if tag != "_rerun":
+            continue
+        rerun, bank = load(bank_path(out, config, fitness, draws, tag)), load(bank_path(out, config, fitness, draws))
+        same = [s for s in sorted(rerun) if s in bank and rerun[s]["deltaE"] == bank[s]["deltaE"]]
+        text = (f"{config} {fitness} {draws}: seeds {sorted(rerun)} run again, ΔE equal to "
+                f"{os.path.basename(bank_path(out, config, fitness, draws))} bit for bit on "
+                f"{len(same)}/{len(rerun)} seeds")
+        with open(os.path.join(out, f"rerun_{config}_{fitness}_{draws}.txt"), "w") as f:
+            f.write(text + "\n")
+        print(f"[rerun] {text}", flush=True)
+        ok &= len(same) == len(rerun)
+    return ok
+
+
 def reports(out: str) -> None:
     for config, (*_, jax_bank, old_oracle, _, fp32_bank) in CONFIGS.items():
         oracle = oracle_path(out, config)
@@ -261,11 +381,12 @@ def reports(out: str) -> None:
             oracle = os.path.join(EVIDENCE, old_oracle)
         jax_path = os.path.join(EVIDENCE, jax_bank)
         runs = [("fp32_device_full", os.path.join(out, fp32_bank))]
-        runs += [(f"{a}_{d}{t}", bank_path(out, c, a, d, t)) for c, a, d, _, _, t in BANKS if c == config]
+        runs += [(f"{a}_{d}{t}", bank_path(out, c, a, d, t)) for c, a, d, _, _, t in BANKS
+                 if c == config and t != "_rerun"]
         for label, path in runs:
             if not load(path):
                 continue
-            for side, against in (("jax", jax_path), ("oracle", oracle)):
+            for side, against in (("jax", jax_path), (f"oracle_n{len(load(oracle))}", oracle)):
                 verdict, gap, sigma = report(path, against,
                                              os.path.join(out, f"report_{config}_{label}_vs_{side}.txt"))
                 print(f"[report] {config} {label} vs {side} (n={len(load(path))}, "
@@ -291,7 +412,7 @@ def reports(out: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--stages", default="layer2,banks,reports")
+    ap.add_argument("--stages", default="layer2,fingerprint,banks,reports")
     ap.add_argument("--deadline", type=float, default=3300.0, help="seconds from the start")
     ap.add_argument("--oracle", default="", help="e.g. config1nat:5,config2:2 (jobs per bank)")
     ap.add_argument("--out", default=C2, help="the evidence directory (a copy of docs/evidence_h100/c2)")
@@ -315,19 +436,24 @@ def main(argv=None) -> int:
     try:
         if "layer2" in stages:
             verdicts = layer2(out, dev)
+        if "fingerprint" in stages:
+            verdicts.update({f"{name} f32x3": v for name, (v, _) in fingerprint(out, dev).items()})
         if "banks" in stages:
             banks(out, deadline, dev)
     except BaseException:
         stop_oracle(out, runs, time.time())
         raise
     stop_oracle(out, runs, deadline)
+    same = True
     if "reports" in stages:
         reports(out)
+        same = reruns(out)
     failed = {name: v for name, v in verdicts.items() if not _passed(v)}
     if failed:
-        print(f"chip_c2: layer 2 with the split fitness did not pass: {failed}", file=sys.stderr)
-        return 1
-    return 0
+        print(f"chip_c2: layer 2 with the emulated fitness did not pass: {failed}", file=sys.stderr)
+    if not same:
+        print("chip_c2: a rerun differs from its bank", file=sys.stderr)
+    return 0 if same and not failed else 1
 
 
 if __name__ == "__main__":

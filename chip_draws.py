@@ -2,7 +2,7 @@
 """Does the draw stream or the score arithmetic move the port's final ΔE?
 
     python3 chip_draws.py [--content natural --size 512 --colors 16 --seeds 0-95
-                           --draws device|host|jax --assign fp32|split
+                           --draws device|host|jax --fitness fp32|split|f32x3
                            --counts PATH --out PATH]
 
 The diagnostic of ROADMAP fault C2 (the port's mean ΔE above the JAX TPU
@@ -20,9 +20,11 @@ engine's at config-1 natural and config-2). It runs `engine_run`'s anneal
                       0.9.0 draws it), copied to the card each iteration; a
                       bank of it pairs seed by seed with the JAX TPU
                       engine's bank;
-  --assign fp32       the engine's fitness (B1, fp32 scores, then B2);
-           split      the TPU's f32x3 fitness (`tools.tpu_f32x3`:
-                      split_assign, then B2);
+  --fitness fp32      the engine's fitness (B1, fp32 scores, then B2);
+            split     the TPU's f32x3 assignment (`tools.tpu_f32x3`:
+                      split_assign, then B2 in fp32);
+            f32x3     the whole TPU fitness emulated: split_assign, then
+                      B2 in its split mode, the TPU kernel's f32x3 conv;
   --counts PATH       appends, per seed, each iteration's acceptances
                       (members whose current error took the proposal),
                       uphill acceptances among them, convergence overwrites
@@ -30,10 +32,11 @@ engine's at config-1 natural and config-2). It runs `engine_run`'s anneal
                       improvements, computed here from the step's tensors
                       and draws; `loop.run_chunk` is not changed.
 
-The records are `engine_run`'s with "draws" and "assign" fields, judged by
-the same f64 oracle, so the frozen `tools/parity_report.py` sets them
-against any bank of the same configuration. Seeds already in the file are
-skipped. Exits non-zero without a CUDA device.
+The records are `engine_run`'s with "draws", "assign" (fp32 or split)
+and "conv" (B2's arithmetic, fp32 or split) fields, judged by the same f64
+oracle, so the frozen `tools/parity_report.py` sets them against any bank
+of the same configuration. Seeds already in the file are skipped. Exits
+non-zero without a CUDA device.
 
 Imports torch, numpy, scipy (the oracle), the standard library and the
 port; never jax.
@@ -52,16 +55,20 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DRAWS = ("device", "host", "jax")
-ASSIGNS = ("fp32", "split")
+#: --fitness -> (assignment, B2's arithmetic), the records' "assign" and "conv"
+FITNESS = {"fp32": ("fp32", "fp32"), "split": ("split", "fp32"), "f32x3": ("split", "split")}
 #: the series --counts records per iteration
 COUNTS = ("accepted", "uphill", "overwritten", "improved")
 
 
-def _fitness(ctx, cfg, assign: str):
+def _fitness(ctx, cfg, fitness: str):
     from hybridquantization_tpu_torch.pipeline import make_population_fitness
     from hybridquantization_tpu_torch.tools.tpu_f32x3 import make_split_population_fitness
 
-    return (make_split_population_fitness if assign == "split" else make_population_fitness)(ctx, cfg)
+    assign, conv = FITNESS[fitness]
+    if assign == "split":
+        return make_split_population_fitness(ctx, cfg, conv)
+    return make_population_fitness(ctx, cfg)
 
 
 def _draw_source(draws: str, seed: int, pop: int, K: int, dev):
@@ -84,7 +91,7 @@ def _draw_source(draws: str, seed: int, pop: int, K: int, dev):
         k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
 
 
-def anneal(img, cfg, seed: int, dev, draws: str = "device", assign: str = "fp32",
+def anneal(img, cfg, seed: int, dev, draws: str = "device", fitness: str = "fp32",
            counts: bool = False):
     """find_palette's random-init anneal with the chosen draws and fitness:
     (best palette (K, 3) float64, {series: (imax,) int} or None)."""
@@ -93,7 +100,7 @@ def anneal(img, cfg, seed: int, dev, draws: str = "device", assign: str = "fp32"
     from hybridquantization_tpu_torch.swasa import loop, schedule
 
     sw = cfg.swasa
-    fit = _fitness(_make_context(img, build_filters(), cfg, dev), cfg, assign)
+    fit = _fitness(_make_context(img, build_filters(), cfg, dev), cfg, fitness)
     seen = {}
 
     def fitness(p):
@@ -132,7 +139,7 @@ def parse_args(argv):
     ap.add_argument("--imax", type=int, default=1500)
     ap.add_argument("--seeds", default="0-95")
     ap.add_argument("--draws", default="host", choices=DRAWS)
-    ap.add_argument("--assign", default="fp32", choices=ASSIGNS)
+    ap.add_argument("--fitness", default="fp32", choices=list(FITNESS))
     ap.add_argument("--counts", default="", help="append per-iteration counts per seed here")
     ap.add_argument("--out", default=os.path.join(REPO, "docs", "evidence_h100", "c2",
                                                   "draws_config1nat_host.jsonl"))
@@ -158,26 +165,27 @@ def main(argv=None, *, device="cuda") -> int:
     target64 = judge_target(img)
     cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=args.colors, population=4, imax=args.imax))
     device_name = smi_line() if dev.type == "cuda" else "cpu"
+    assign, conv = FITNESS[args.fitness]
     for i, s in enumerate(todo):
         t0 = time.time()
-        palette, series = anneal(img, cfg, s, dev, args.draws, args.assign, bool(args.counts))
+        palette, series = anneal(img, cfg, s, dev, args.draws, args.fitness, bool(args.counts))
         t_anneal = time.time() - t0
         de, mse = quality(img, palette, target64)
         rec = {"seed": s, "deltaE": de, "mse": mse, "precision": "f32x3", "size": args.size,
                "colors": args.colors, "imax": args.imax, "population": 4, "content": args.content,
                "assignment_space": "srgb", "anneal_seconds": round(t_anneal, 3), "engine": "torch",
-               "device": device_name, "draws": args.draws, "assign": args.assign}
+               "device": device_name, "draws": args.draws, "assign": assign, "conv": conv}
         if i == 0:
             rec["compile_inclusive"] = True
         if series is not None:
             with open(args.counts, "a") as f:
-                f.write(json.dumps({"seed": s, "draws": args.draws, "assign": args.assign,
+                f.write(json.dumps({"seed": s, "draws": args.draws, "assign": assign,
                                     "deltaE": de, **series}) + "\n")
         with open(args.out, "a") as f:
             f.write(json.dumps(rec) + "\n")
             f.flush()
             os.fsync(f.fileno())
-        print(f"[{args.draws} draws, {args.assign}] {rec}", flush=True)
+        print(f"[{args.draws} draws, {args.fitness} fitness] {rec}", flush=True)
     return 0
 
 

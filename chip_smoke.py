@@ -16,7 +16,9 @@ sRGB and LAB and the 1024x768 frame), and B1's and B2's fast variants
 LAB, B2 at 29, 45, 69 and 93 taps through both of its paths (the fused
 kernel with any filter, and the two-pass one) and at 123 taps (above the
 fused kernel's limit) through the two-pass path on the 1024x768 frame,
-prints B2's peak device memory per launch (4K/pop4, each batch bucket),
+B2's split mode (the TPU kernel's f32x3) at 4K/pop4, each split check with
+the fp32 mode's sums at least TEETH limits away, prints B2's peak device memory per
+launch (4K/pop4, each batch bucket),
 checks the annealing slice and the exact Lloyd polish against the plain
 path on small inputs, then drives seven paths at full width, each with the
 launch counts set to 0 just before it and read just after:
@@ -25,10 +27,12 @@ launch counts set to 0 just before it and read just after:
                     smooth): `tools.fitness_parity`, 2 batches of 4 random
                     palettes through B1 and B2 against the f64 oracle
                     (`tests/oracle.py`); it must print PASS at 1e-3;
-  tpu_f32x3         fault C2's emulation of the TPU's f32x3 fitness
-                    (`tools.tpu_f32x3`: split_assign, then B2) at config-1
-                    natural, one batch of 4 palettes: against its plain
-                    version, split_assign against its own, flips against B1;
+  tpu_f32x3         fault C2's emulation of the TPU's whole f32x3 fitness
+                    (`tools.tpu_f32x3` with conv "split": split_assign, then
+                    B2 in its split mode) at config-1 natural, one batch of
+                    4 palettes: every B2 launch in split mode, the fitness
+                    against its plain version, split_assign and B2's split
+                    mode each against their own, flips against B1;
   e2e               random init, imax=30: `HybridQuantizer(...).run` and
                     `error_image` (B1, B2; B3 in quantize);
   quality schedule  k-means seeds, imax=50, `.polish` (histogram at 4K),
@@ -100,8 +104,9 @@ Each phase prints a line or a few. Before the last line it prints the card's
 name and power limit and a JSON object with one entry per kernel (B1, B2,
 B3's index mode and its Lloyd-step mode at top level: their numbers at the
 batch's largest bucket and their launches there; the probe kernels: their
-first variant and the probe paths' launches);
-the last line
+first variant and the probe paths' launches; B2's split mode as
+`fused_fitness_f32x3`: its numbers at config-1, launches from the
+tpu_f32x3 path); the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 so does a machine without a CUDA device.
 
@@ -144,8 +149,9 @@ BATCH_SIZES = ((1080, 1920), (720, 1280), (768, 1024), (480, 640))
 BATCH_IMAGES = 64
 HIST_POLISH_PIXELS = 1 << 20  # polish_palette's "auto": the histogram from this many pixels an image on
 LLOYD_RUN = SEED_STEPS + POLISH  # B3 Lloyd-step launches of a seeded, polished run (an image or a bucket)
-# the probe kernels (T1-T8): the engine paths launch none of them
-NO_PROBES = {"probe_kloop": 0, "split_rowmax": 0, "split_assign": 0}
+# the probe kernels (T1-T8) and B2's split mode (the TPU's f32x3, reached only
+# from fault C2's emulation): the engine paths launch none of them
+OFF_ENGINE = {"probe_kloop": 0, "split_rowmax": 0, "split_assign": 0, "fused_fitness_split": 0}
 # phase_parity: the port's layer-2 parity tool at config-1, 2 palette batches
 PARITY_ARGS = ["--content", "smooth", "--size", "512", "--colors", "16", "--palettes", "2",
                "--population", "4", "--tolerance", "1e-3"]
@@ -153,9 +159,14 @@ PARITY_ARGS = ["--content", "smooth", "--size", "512", "--colors", "16", "--pale
 # against a sequential sum of the same 12 exact products, relative to
 # max(1, |score|) (4.8e-7 measured at 4K)
 SPLIT_RTOL = 1e-6
-# the emulated f32x3 fitness (split_assign, then B2) on the card against its
-# plain version: B2's fp32 sums in another order, and near-tie winners
-TPU_F32X3_RTOL = 1e-5
+# B2's split mode, and the emulated f32x3 fitness (split_assign, then B2 in
+# split mode), kernel against plain on the same card operands, relative:
+# 2.5e-7 measured at 4K/pop4, 1.5e-7 (B2) and 1.0e-7 (the fitness) at
+# config-1 (NVIDIA H100 80GB HBM3, 700 W). Each such check also holds the
+# fp32 mode's sums at least TEETH limits from the plain split's (2.7e-6 at
+# 4K, 3.9e-6 and 2.7e-6 at config-1), or fails as unable to tell them apart
+B2_SPLIT_RTOL = 8e-7
+TEETH = 3
 # bf16 row maxima that may round the other way from plain (1e-5 measured at 4K;
 # a truncating kernel puts about half of them one ulp off)
 BF16_OFF_SHARE = 1e-4
@@ -209,12 +220,14 @@ def b1_bound(P: int, K: int, pop: int, bf16: bool = False, images: int = 1) -> d
                  4.0 * images * (3 * P + 6 * pop * K + 3 * pop * P + pop * K), bf16)
 
 
-def b2_bound(H: int, W: int, taps: int, pop: int, bf16: bool = False, images: int = 1) -> dict:
+def b2_bound(H: int, W: int, taps: int, pop: int, bf16: bool = False, images: int = 1,
+             split: bool = False) -> dict:
     """B2: 7 filters x taps multiply-adds per pass, two passes, per member
-    pixel (the LAB and Delta-E tail is left out, under a tenth of it);
-    opponent images and targets in, sums out."""
+    pixel, three of them in split mode (hi.hi + hi.lo + lo.hi; the LAB and
+    Delta-E tail is left out, under a tenth of it); opponent images and
+    targets in, sums out."""
     members = images * pop
-    return bound(2.0 * 2 * 7 * taps * members * H * W,
+    return bound((3 if split else 1) * 2.0 * 2 * 7 * taps * members * H * W,
                  4.0 * (3 * members * H * W + 3 * images * H * W + 14 * taps + members), bf16)
 
 
@@ -336,6 +349,59 @@ def phase_b2(img, opp, dev) -> dict:
     return {"shape": f"{w}x{h}", "pop": pop, "max_abs_err": max_abs, "max_rel_err": rel,
             "ms": ms, "tile_ms": tile_ms, "plain_ms": plain_ms, "peak_mib_per_launch": peak,
             **b2_bound(h, w, ctx["kh"].shape[1], pop)}
+
+
+def _hold_split(what: str, got, want, fp32) -> tuple[float, float]:
+    """B2's split mode `got` against its plain version `want` within
+    B2_SPLIT_RTOL, and the fp32 mode's sums `fp32` on the same inputs at
+    least TEETH limits from `want`, so that a split without effect, or with
+    the wrong arithmetic, would fail here: (rel, fp32's rel)."""
+    rel = ((got.double() - want.double()).abs() / want.double().abs()).max().item()
+    far = ((fp32.double() - want.double()).abs() / want.double().abs()).max().item()
+    if not (bool(torch.isfinite(got).all()) and rel <= B2_SPLIT_RTOL):
+        fail(f"{what}: split {got.tolist()} vs plain {want.tolist()}: rel {rel} > {B2_SPLIT_RTOL}")
+    if far < TEETH * B2_SPLIT_RTOL:
+        fail(f"{what}: the fp32 mode sits {far:.3g} from plain split, under {TEETH} x {B2_SPLIT_RTOL}: "
+             f"this input cannot tell the modes apart")
+    return rel, far
+
+
+def phase_b2_split(img, opp, dev) -> dict:
+    """B2's split mode (precision "split", the TPU kernel's f32x3) at 4K/pop4
+    on B1's winners `opp`: twice bit-equal, against its plain version by
+    `_hold_split`, timed beside the fp32 mode. Its other paths (29 and 123
+    taps, the slabs, the image axis) are held in tests/test_torch_cuda.py."""
+    from hybridquantization_tpu_torch import QuantizationConfig
+    from hybridquantization_tpu_torch import colorspace as cs
+    from hybridquantization_tpu_torch.ops import fused_fitness as ff
+    from hybridquantization_tpu_torch.pipeline import _make_context
+    from hybridquantization_tpu_torch.scielab.filters import build_filters
+
+    (h, w, _), pop = img.shape, opp.shape[0]
+    ctx = _make_context(img, build_filters(), QuantizationConfig(), dev)
+    taps = ctx["kh"].shape[1]
+    args = (opp.reshape(pop, 3, h, w), ctx["target_planar"], ctx["kh"], ctx["kv"], cs.WHITEPOINT_D65, "CIE76")
+    host = {"taps_on_host": ctx["taps_on_host"]}
+    before = ff.fused_scielab_err_sums.split_launches
+    got = ff.fused_scielab_err_sums(*args, precision="split", **host)
+    again = ff.fused_scielab_err_sums(*args, precision="split", **host)
+    torch.cuda.synchronize()
+    if ff.fused_scielab_err_sums.split_launches - before != 2:
+        fail(f"B2 split: {ff.fused_scielab_err_sums.split_launches - before} split-mode launches of 2")
+    if not torch.equal(got, again):
+        fail(f"B2 split sums differ between two identical launches: {got.tolist()}, {again.tolist()}")
+    want, plain_s = _timed(lambda: ff.fused_scielab_err_sums_reference(*args, precision="split"))
+    rel, far = _hold_split(f"B2 split {w}x{h}", got, want, ff.fused_scielab_err_sums(*args, **host))
+    ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, precision="split", **host), 20)
+    fp32_ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*args, **host), 20)
+    row = {"variant": "split (f32x3)", "shape": f"{w}x{h}", "pop": pop, "max_abs_err": float((got - want).abs().max()),
+           "max_rel_err": rel, "fp32_vs_plain_split_rel": far, "ms": ms, "fp32_ms": fp32_ms,
+           "plain_ms": plain_s * 1e3, **b2_bound(h, w, taps, pop, split=True)}
+    print(f"B2 split (f32x3) {w}x{h} pop={pop} CIE76: max rel diff from plain {rel:.3g} <= {B2_SPLIT_RTOL}, "
+          f"bit-equal twice; the fp32 mode {far:.3g} from plain split (>= {TEETH} x {B2_SPLIT_RTOL}); "
+          f"kernel {ms:.3f} ms (fp32 mode {fp32_ms:.3f} ms), plain {plain_s * 1e3:.3f} ms, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+    return row
 
 
 def _peak_mib(launch) -> float:
@@ -577,6 +643,7 @@ def _counts() -> dict:
 
     return {"assign_pop": ak.assign_opp_usage_pop.launches,
             "fused_fitness": ff.fused_scielab_err_sums.launches,
+            "fused_fitness_split": ff.fused_scielab_err_sums.split_launches,
             "assign_idx": ak.assign_idx.launches,
             "lloyd_step": ak.lloyd_step.launches,
             "probe_kloop": pk.kloop_assign.launches,
@@ -595,6 +662,7 @@ def _reset_counts() -> None:
     ak.lloyd_step.unfused_launches = 0
     ff.fused_scielab_err_sums.slab_launches = 0
     ff.fused_scielab_err_sums.two_pass_launches = 0
+    ff.fused_scielab_err_sums.split_launches = 0
 
 
 def _fused_only(what: str) -> None:
@@ -638,7 +706,7 @@ def _run_schedule(img, dev, cfg):
     launches = _counts()
     # B3: the run's quantize and the final one; the seeding's and the polish's Lloyd steps
     want = {"assign_pop": 1 + QS_IMAX, "fused_fitness": 1 + QS_IMAX, "assign_idx": 2,
-            "lloyd_step": LLOYD_RUN, **NO_PROBES}
+            "lloyd_step": LLOYD_RUN, **OFF_ENGINE}
     if launches != want:
         fail(f"the schedule launched {launches}, not {want}")
     _fused_only("the schedule")
@@ -772,7 +840,7 @@ def phase_cli(dev) -> dict:
             fail(f"cli output {out.shape} with {n_colors} colours")
         # B3: the k-means seeding's and the exact polish's Lloyd steps, the dithered quantize
         want = {"assign_pop": 1 + CLI_IMAX, "fused_fitness": 1 + CLI_IMAX, "assign_idx": 1,
-                "lloyd_step": LLOYD_RUN, **NO_PROBES}
+                "lloyd_step": LLOYD_RUN, **OFF_ENGINE}
         if first != want:
             fail(f"cli quantize launched {first}, not {want}")
         _fused_only("cli quantize")
@@ -782,7 +850,7 @@ def phase_cli(dev) -> dict:
         if "resuming from" not in text2 or f"at iteration {CLI_IMAX}" not in text2:
             fail(f"cli second run did not resume at iteration {CLI_IMAX}: {text2[-500:]}")
         # no seeding and no iteration: B3 only in the polish and the quantize
-        want = {"assign_pop": 0, "fused_fitness": 0, "assign_idx": 1, "lloyd_step": POLISH, **NO_PROBES}
+        want = {"assign_pop": 0, "fused_fitness": 0, "assign_idx": 1, "lloyd_step": POLISH, **OFF_ENGINE}
         if second != want:
             fail(f"cli resumed run launched {second}, not {want}")
 
@@ -1041,7 +1109,7 @@ def phase_batch(dev) -> dict:
             peak = torch.cuda.max_memory_allocated()
             n, h, w, _ = stack.shape
             want = {"assign_pop": 1 + QS_IMAX, "fused_fitness": 1 + QS_IMAX, "assign_idx": 1,
-                    "lloyd_step": LLOYD_RUN, **NO_PROBES}
+                    "lloyd_step": LLOYD_RUN, **OFF_ENGINE}
             if launches != want:
                 fail(f"batch bucket {w}x{h} of {n} launched {launches}, not {want}")
             colours = max(len(torch.unique(o.reshape(-1, 3), dim=0)) for o in out)
@@ -1101,7 +1169,7 @@ def phase_batch(dev) -> dict:
         t_cli = time.perf_counter() - t0
         cli_launches = _counts()
         want = {"assign_pop": 4 * (1 + QS_IMAX), "fused_fitness": 4 * (1 + QS_IMAX), "assign_idx": 4,
-                "lloyd_step": 4 * LLOYD_RUN, **NO_PROBES}
+                "lloyd_step": 4 * LLOYD_RUN, **OFF_ENGINE}
         if rc != 0 or cli_launches != want:
             fail(f"quantize-batch exited {rc}, launched {cli_launches}, not {want}: {text.getvalue()[-2000:]}")
         lines = [ln for ln in text.getvalue().splitlines() if "error=" in ln and "DeltaE=" in ln]
@@ -1181,27 +1249,32 @@ def phase_parity() -> dict:
         fail(f"fitness_parity {' '.join(PARITY_ARGS)}: rc {rc}, {lines[-1]}")
     if launches["assign_pop"] == 0 or launches["fused_fitness"] == 0:
         fail(f"fitness_parity launched {launches}: B1 and B2 at least once")
-    if {k: launches[k] for k in NO_PROBES} != NO_PROBES:
-        fail(f"fitness_parity launched a probe kernel: {launches}")
+    if {k: launches[k] for k in OFF_ENGINE} != OFF_ENGINE:
+        fail(f"fitness_parity launched a kernel no engine path launches: {launches}")
     print(f"parity: fitness_parity {' '.join(PARITY_ARGS)} in {secs:.1f} s, launches {launches}")
     return launches
 
 
-def phase_tpu_f32x3(dev) -> tuple[dict, dict]:
-    """Fault C2's emulation of the TPU's f32x3 fitness (`tools.tpu_f32x3`:
-    split_assign at f32x3, then B2) at config-1 (512x512 natural, K=16,
-    pop 4) on one batch of 4 random palettes, the counts set to 0 just
-    before and read just after: the fitness on the card against its plain
-    version (the CPU context's) within TPU_F32X3_RTOL; split_assign
-    against its plain version on the card's operands by
-    `_check_split_first`; its flips against B1 (fp32) printed.
-    Returns (launches, the split_assign row at this shape)."""
+def phase_tpu_f32x3(dev) -> tuple[dict, dict, dict]:
+    """Fault C2's emulation of the whole TPU f32x3 fitness (`tools.tpu_f32x3`
+    with conv "split": split_assign at f32x3, then B2 in its split mode) at
+    config-1 (512x512 natural, K=16, pop 4) on one batch of 4 random
+    palettes, the counts set to 0 just before and read just after: every B2
+    launch in split mode; split_assign against its plain version on the
+    card's operands by `_check_split_first`; the fitness against the plain
+    versions of both kernels on the same operands, and B2's split mode on
+    split_assign's colours against its own, each by `_hold_split` (the
+    emulation with fp32 B2, and B2's fp32 mode, as the teeth), timed;
+    split_assign's flips against B1 (fp32) printed. Returns (launches, the
+    split_assign row and the B2 split row at this shape)."""
     from hybridquantization_tpu_torch import QuantizationConfig, SWASAConfig
     from hybridquantization_tpu_torch import colorspace as cs
     from hybridquantization_tpu_torch.ops import assign_kernel as ak
+    from hybridquantization_tpu_torch.ops import fused_fitness as ff
     from hybridquantization_tpu_torch.ops import probe_kernels as pk
     from hybridquantization_tpu_torch.pipeline import _make_context
     from hybridquantization_tpu_torch.scielab.filters import build_filters
+    from hybridquantization_tpu_torch.swasa import schedule
     from hybridquantization_tpu_torch.tools import pack_pixels, tpu_f32x3
     from hybridquantization_tpu_torch.tools.parity_check import content_image
 
@@ -1210,25 +1283,28 @@ def phase_tpu_f32x3(dev) -> tuple[dict, dict]:
     cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=k, population=pop))
     pals = torch.rand((pop, k, 3), generator=torch.Generator().manual_seed(4))
     ctx = _make_context(img, build_filters(), cfg, dev)
-    fit = tpu_f32x3.make_split_population_fitness(ctx, cfg)
+    fit = tpu_f32x3.make_split_population_fitness(ctx, cfg, "split")
     pals_dev = pals.to(dev)
     _reset_counts()
     err, _ = fit(pals_dev)
     torch.cuda.synchronize()
     launches = _counts()
-    if launches["split_assign"] == 0 or launches["fused_fitness"] == 0 or launches["assign_pop"]:
-        fail(f"tpu_f32x3 fitness launched {launches}: split_assign and B2, and not B1")
-    plain = tpu_f32x3.make_split_population_fitness(_make_context(img, build_filters(), cfg, "cpu"), cfg)
-    want, _ = plain(pals)
-    rel = float(((err.cpu() - want).abs() / want.abs()).max())
-    if not rel <= TPU_F32X3_RTOL:
-        fail(f"tpu_f32x3 fitness on the card against its plain version: max relative gap {rel}")
+    if (launches["split_assign"] == 0 or launches["fused_fitness"] == 0 or launches["assign_pop"]
+            or launches["fused_fitness_split"] != launches["fused_fitness"]):
+        fail(f"tpu_f32x3 fitness launched {launches}: split_assign and B2 in split mode, and not B1")
     x4 = pack_pixels(ctx["assign_pixels"])
     c4, o4 = pk.pack_palette(pals_dev, cs.srgb_to_opp(pals_dev))
     (opp, counts, idx), (p_opp, p_counts, p_idx), plain_ms = _versus(
         lambda *a: pk.split_assign(*a, return_index=True),
         lambda *a: pk.split_assign_reference(*a, return_index=True), x4, c4, o4)
     n, count = _check_split_first("tpu_f32x3 split_assign", x4, c4, (opp, counts, idx), (p_opp, p_counts, p_idx))
+    # the whole fitness against split_assign's and B2's plain versions, as
+    # make_split_population_fitness composes them
+    b2_plain = (ctx["target_planar"], ctx["kh"], ctx["kv"], ctx["whitepoint"], cfg.deltaE)
+    want = (ff.fused_scielab_err_sums_reference(p_opp.reshape(pop, 3, size, size), *b2_plain, precision="split")
+            / (size * size) + schedule.unused_penalty(p_counts > 0, cfg.swasa.delta))
+    fp32_conv, _ = tpu_f32x3.make_split_population_fitness(ctx, cfg, "fp32")(pals_dev)
+    rel, fit_far = _hold_split("tpu_f32x3 fitness", err, want, fp32_conv)
     ms = cuda_ms(lambda: pk.split_assign(x4, c4, o4), 20)
     P = size * size
     b = split_bound(P, k, pop, 4.0 * (4 * P + 8 * pop * k + 3 * pop * P + pop * k), 2)
@@ -1236,18 +1312,37 @@ def phase_tpu_f32x3(dev) -> tuple[dict, dict]:
                                            return_index=True)
     flips = (idx != b1_idx).float().mean(1).tolist()
     fit_ms = cuda_ms(lambda: fit(pals_dev), 20)
-    print(f"tpu_f32x3 config-1 natural 512x512 K={k} pop={pop}: split fitness on the card vs plain max "
-          f"rel gap {rel:.3g} <= {TPU_F32X3_RTOL} ({fit_ms:.3f} ms an evaluation); split_assign "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), {n} "
-          f"winners off plain (near ties); flips against B1 (fp32) per member "
-          + " ".join(f"{f:.3e}" for f in flips) + f"; launches {launches}")
+    # B2's split mode on the colours split_assign gave this batch
+    q = opp.reshape(pop, 3, size, size)
+    b2_args = (q, ctx["target_planar"], ctx["kh"], ctx["kv"], ctx["whitepoint"], cfg.deltaE)
+    b2_kw = {"precision": "split", "taps_on_host": ctx["taps_on_host"]}
+    b2_got = ff.fused_scielab_err_sums(*b2_args, **b2_kw)
+    b2_want, b2_plain_s = _timed(lambda: ff.fused_scielab_err_sums_reference(*b2_args, precision="split"))
+    b2_rel, b2_far = _hold_split("B2 split at config-1", b2_got, b2_want, ff.fused_scielab_err_sums(
+        *b2_args, taps_on_host=ctx["taps_on_host"]))
+    b2_ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*b2_args, **b2_kw), 20)
+    b2_fp32_ms = cuda_ms(lambda: ff.fused_scielab_err_sums(*b2_args, taps_on_host=ctx["taps_on_host"]), 20)
+    b2_row = {"variant": "B2 f32x3 (tpu_f32x3 conv split, config-1 natural)", "shape": f"{size}x{size}",
+              "pop": pop, "max_abs_err": float((b2_got - b2_want).abs().max()), "max_rel_err": b2_rel,
+              "fp32_vs_plain_split_rel": b2_far, "ms": b2_ms, "fp32_ms": b2_fp32_ms, "plain_ms": b2_plain_s * 1e3,
+              **b2_bound(size, size, ctx["kh"].shape[1], pop, split=True),
+              "launches_from": "tpu_f32x3_config1", "launches": launches["fused_fitness_split"]}
+    print(f"tpu_f32x3 config-1 natural 512x512 K={k} pop={pop}: the whole emulated fitness (conv split) on "
+          f"the card vs plain max rel gap {rel:.3g} <= {B2_SPLIT_RTOL}, with fp32 B2 {fit_far:.3g} "
+          f"({fit_ms:.3f} ms an evaluation); "
+          f"split_assign {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+          f"{n} winners off plain (near ties); B2 split {b2_ms:.3f} ms (fp32 mode {b2_fp32_ms:.3f} ms), plain "
+          f"{b2_plain_s * 1e3:.3f} ms, bound {b2_row['bound_ms']:.4f} ms ({b2_row['bound_by']}), rel {b2_rel:.3g} "
+          f"(fp32 mode {b2_far:.3g}); "
+          f"flips against B1 (fp32) per member " + " ".join(f"{f:.3e}" for f in flips)
+          + f"; launches {launches}")
     row = {"variant": "T4 f32x3 (tpu_f32x3, config-1 natural)", "replaces": "tools/kexp_assign.py:271",
            "ms": ms, "plain_ms": plain_ms, **b, "K": k, "P": P,
            "max_abs_err": float((opp - p_opp).abs().max()), "winner_mismatches": n,
-           "count_mismatches": count, "fitness_max_rel_gap": rel,
+           "count_mismatches": count, "fitness_max_rel_gap": rel, "fitness_fp32_conv_rel": fit_far,
            "flips_against_b1": flips, "launches_from": "tpu_f32x3_config1",
            "launches": launches["split_assign"]}
-    return launches, row
+    return launches, row, b2_row
 
 
 def phase_e2e(img, dev) -> tuple[dict, float]:
@@ -1797,7 +1892,7 @@ def _engine_against_one_device(ranks, img, dev, label) -> dict:
     de_rel = float(r0["de"][0]) / float(de[0]) - 1
     want = {"assign_pop": POP * (1 + QS_IMAX), "fused_fitness": POP * (1 + QS_IMAX),
             "fused_fitness_slabs": POP * (1 + QS_IMAX), "assign_idx": 1, "lloyd_step": LLOYD_RUN,
-            **NO_PROBES}
+            **OFF_ENGINE}
     if r0["launches"] != want:
         fail(f"{label}: each rank launched {r0['launches']}, not {want}")
     if abs(de_rel) > MESH_DE_REL or r0["colours"] > K:
@@ -1900,6 +1995,7 @@ def main() -> int:
     b1_cli, cli_opp = phase_b1(cli_dev, cli_pals)
     b2 = phase_b2(img, opp, dev)
     b2_cli = phase_b2(cli_img, cli_opp, dev)
+    b2_split = phase_b2_split(img, opp, dev)
     b2_paths = phase_b2_paths(dev)
     b2s = phase_mesh_b2s(img, opp, dev)
     b3, lloyd = phase_b3(_b3_cases(img_dev, pals, cli_dev))
@@ -1911,7 +2007,7 @@ def main() -> int:
     phase_small_slice(dev)
     phase_small_polish(dev)
     parity = phase_parity()
-    f32x3, f32x3_row = phase_tpu_f32x3(dev)
+    f32x3, f32x3_row, f32x3_b2_row = phase_tpu_f32x3(dev)
     launches, random_de = phase_e2e(img, dev)
     quality, exact = phase_quality_schedule(img, dev, random_de)
     cli_counts = phase_cli(dev)
@@ -1982,6 +2078,12 @@ def main() -> int:
     split_row = next(r for r in kernels if r["name"] == "split_assign")
     split_row["variants"].append({**{k: split_row[k] for k in ("name", "route", "source")}, **f32x3_row})
     split_row["launches"] += f32x3["split_assign"]
+    # B2's split mode, the TPU kernel's f32x3: its numbers at the shape of the
+    # emulation's path (config-1), launches from that path; 4K under "checks"
+    kernels.append({"name": "fused_fitness_f32x3", "route": "cuda",
+                    "source": "hybridquantization_tpu_torch/csrc/fused_fitness.cu",
+                    "replaces": "hybridquantization_tpu/ops/fused_fitness.py:597", **f32x3_b2_row,
+                    "checks": [b2_split], "launches_by_path": by_path("fused_fitness_split")})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

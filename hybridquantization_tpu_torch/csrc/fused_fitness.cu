@@ -30,6 +30,20 @@
 // one f32 add, as in the TPU's f32 accumulator. Recombination, LAB and
 // Delta-E stay f32.
 //
+// split mode is the TPU kernel's f32x3 (fused_fitness.py:369-393, :415-424,
+// the matrix split :550-555): every conv operand is split into bf16 hi and
+// lo, x = hi + lo with hi = bf16(x), lo = bf16(x - hi), and each product is
+// hi.hi + hi.lo + lo.hi (lo.lo dropped), three exact products added to the
+// f32 accumulator with fmaf. The horizontal pass's output is kept as its
+// hi/lo pair (the TPU's t7a/t7b bf16 scratches, :388-392, :595-596), which
+// the vertical pass multiplies the same way. A split value travels as one
+// 32-bit word, hi's bf16 bits above lo's (split_pack), in the staging
+// buffers, the ring and the two-pass scratch, so shared memory is as in
+// fp32 mode; the coefficients in shared memory are packed words too, the
+// default taps' hi and lo two kernel parameters. The R-folded edge matrices
+// of the TPU multiply the clamped edge block by reversed taps, product by
+// product, which is reflection by index here. LAB and Delta-E stay f32.
+//
 // What bounds it on the H100: fp32 operations. Two passes of 7 filters x
 // taps multiply-adds per member pixel (294 at the default 21 taps) against
 // 12 bytes of opponent image read per member pixel; at 4K/pop4 that is
@@ -107,13 +121,50 @@ struct DefaultTaps {
   float v[7][kDefaultTaps];
 };
 
+// the conv arithmetic (the wrapper's precision): fp32, bf16 operands, or
+// the TPU's f32x3 hi/lo split
+enum Mode : int { kFp32 = 0, kBf16 = 1, kSplit = 2 };
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <bool kBf16>
+// x as its hi/lo bf16 pair in one word (hi's bits high), read back as a float
+// slot; both roundings to nearest even, as the TPU's astype
+__device__ __forceinline__ float split_pack(float x) {
+  const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+  const __nv_bfloat16 lo = __float2bfloat16_rn(x - __bfloat162float(hi));
+  return __uint_as_float(((unsigned)__bfloat16_as_ushort(hi) << 16) | __bfloat16_as_ushort(lo));
+}
+__device__ __forceinline__ float split_hi(float w) { return __uint_as_float(__float_as_uint(w) & 0xffff0000u); }
+__device__ __forceinline__ float split_lo(float w) { return __uint_as_float(__float_as_uint(w) << 16); }
+
+// a conv operand as the mode stores it: the value, rounded, or packed
+template <int kMode>
+__device__ __forceinline__ float convert(float x) {
+  return kMode == kBf16 ? bf16_round(x) : (kMode == kSplit ? split_pack(x) : x);
+}
+
+template <int kMode>
 __device__ __forceinline__ float load(const float* p) {
-  return kBf16 ? bf16_round(*p) : *p;
+  return convert<kMode>(*p);
+}
+
+// acc + coefficient x sample in the mode's arithmetic: one fmaf, or in split
+// mode (v packed; the coefficient's hi and lo given) th.vh + th.vl + tl.vh
+template <int kMode>
+__device__ __forceinline__ float fma_tap(float th, float tl, float v, float acc) {
+  if (kMode != kSplit) return fmaf(th, v, acc);
+  const float vh = split_hi(v);
+  acc = fmaf(th, vh, acc);
+  acc = fmaf(th, split_lo(v), acc);
+  return fmaf(tl, vh, acc);
+}
+
+// the same with the coefficient as the mode stores it (packed in split mode)
+template <int kMode>
+__device__ __forceinline__ float fma_packed(float c, float v, float acc) {
+  return kMode == kSplit ? fma_tap<kMode>(split_hi(c), split_lo(c), v, acc) : fmaf(c, v, acc);
 }
 
 __device__ __forceinline__ int mirror(int i, int n) {
@@ -177,13 +228,15 @@ __device__ __forceinline__ void stage_group(float* buf, const float* q, const fl
   }
 }
 
-// bf16: round what this thread staged (its own copies have landed)
-__device__ __forceinline__ void round_group(float* buf, int sw) {
+// bf16 and split modes: round or split what this thread staged (its own
+// copies have landed), so that each sample is converted once
+template <int kMode>
+__device__ __forceinline__ void convert_group(float* buf, int sw) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int rc = warp; rc < 3 * kTileH; rc += kThreads / 32) {
     float* row = buf + (size_t)rc * sw;
-    for (int s = lane; s < sw; s += 32) row[s] = bf16_round(row[s]);
+    for (int s = lane; s < sw; s += 32) row[s] = convert<kMode>(row[s]);
   }
 }
 
@@ -204,7 +257,7 @@ __device__ __forceinline__ void tap_coeffs(const float* sk, int t, float (&c)[7]
 // the three channels; it loads taps 4 s4 .. 4 s4 + 3 into slots kU .. kU + 3
 // (kU = 4 (s4 % 2), so tap t is in slot t % 8). kGuard: skip taps outside
 // [0, taps) (the first and last steps).
-template <int kU, bool kGuard>
+template <int kMode, int kU, bool kGuard>
 __device__ __forceinline__ void hpass_step(const float* r, size_t cs, const float* skh, int taps,
                                            int s4, float (&c)[8][7], float (&acc)[kRX][7]) {
 #pragma unroll
@@ -223,13 +276,13 @@ __device__ __forceinline__ void hpass_step(const float* r, size_t cs, const floa
       const int t = 4 * s4 + jj - k;
       if (!kGuard || (t >= 0 && t < taps)) {
         const int w = (kU + jj - k) & 7;
-        acc[k][0] = fmaf(c[w][0], v0[jj], acc[k][0]);
-        acc[k][1] = fmaf(c[w][1], v1[jj], acc[k][1]);
-        acc[k][2] = fmaf(c[w][2], v2[jj], acc[k][2]);
-        acc[k][3] = fmaf(c[w][3], v0[jj], acc[k][3]);
-        acc[k][4] = fmaf(c[w][4], v1[jj], acc[k][4]);
-        acc[k][5] = fmaf(c[w][5], v2[jj], acc[k][5]);
-        acc[k][6] = fmaf(c[w][6], v0[jj], acc[k][6]);
+        acc[k][0] = fma_packed<kMode>(c[w][0], v0[jj], acc[k][0]);
+        acc[k][1] = fma_packed<kMode>(c[w][1], v1[jj], acc[k][1]);
+        acc[k][2] = fma_packed<kMode>(c[w][2], v2[jj], acc[k][2]);
+        acc[k][3] = fma_packed<kMode>(c[w][3], v0[jj], acc[k][3]);
+        acc[k][4] = fma_packed<kMode>(c[w][4], v1[jj], acc[k][4]);
+        acc[k][5] = fma_packed<kMode>(c[w][5], v2[jj], acc[k][5]);
+        acc[k][6] = fma_packed<kMode>(c[w][6], v0[jj], acc[k][6]);
       }
     }
   }
@@ -238,7 +291,7 @@ __device__ __forceinline__ void hpass_step(const float* r, size_t cs, const floa
 // Ring row j of the vertical pass at any taps: it loads tap j into slot kU
 // (= j % 4) and feeds output k with tap j - k. kGuard: skip taps outside
 // [0, taps).
-template <int kU, bool kGuard>
+template <int kMode, int kU, bool kGuard>
 __device__ __forceinline__ void vpass_row(const float* skv, int taps, int j, const float (&v)[7],
                                           float (&c)[4][7], float (&acc)[kRY][7]) {
   if (!kGuard || j < taps) tap_coeffs(skv, j, c[kU]);
@@ -247,18 +300,19 @@ __device__ __forceinline__ void vpass_row(const float* skv, int taps, int j, con
     const int t = j - k;
     if (!kGuard || (t >= 0 && t < taps)) {
 #pragma unroll
-      for (int f = 0; f < 7; ++f) acc[k][f] = fmaf(c[(kU - k) & 3][f], v[f], acc[k][f]);
+      for (int f = 0; f < 7; ++f) acc[k][f] = fma_packed<kMode>(c[(kU - k) & 3][f], v[f], acc[k][f]);
     }
   }
 }
 
 // The horizontal pass of one staged group: thread (row i, columns 4 cg ..
-// 4 cg + 3) writes its 4 x 7 outputs to ring rows `slot`. Each
-// accumulator takes its taps in ascending order.
-template <int kTaps, bool kBf16>
+// 4 cg + 3) writes its 4 x 7 outputs to ring rows `slot` (rounded to bf16
+// in bf16 mode, as hi/lo pairs in split mode). Each accumulator takes its
+// taps in ascending order.
+template <int kTaps, int kMode>
 __device__ __forceinline__ void hpass_group(const float* buf, float* ring, int slot0,
-                                            const DefaultTaps& dt, const float* skh,
-                                            int taps, int sw) {
+                                            const DefaultTaps& dt, const DefaultTaps& dtl,
+                                            const float* skh, int taps, int sw) {
   const int i = threadIdx.x / (kTileW / kRX);
   const int cg = threadIdx.x - i * (kTileW / kRX);
   const size_t cs = (size_t)kTileH * sw;  // channel stride of the staging buffer
@@ -285,13 +339,13 @@ __device__ __forceinline__ void hpass_group(const float* buf, float* ring, int s
         for (int k = 0; k < kRX; ++k) {
           const int t = 4 * j4 + jj - k;
           if (t >= 0 && t < kTaps) {
-            acc[k][0] = fmaf(dt.h[0][t], v0[jj], acc[k][0]);
-            acc[k][1] = fmaf(dt.h[1][t], v1[jj], acc[k][1]);
-            acc[k][2] = fmaf(dt.h[2][t], v2[jj], acc[k][2]);
-            acc[k][3] = fmaf(dt.h[3][t], v0[jj], acc[k][3]);
-            acc[k][4] = fmaf(dt.h[4][t], v1[jj], acc[k][4]);
-            acc[k][5] = fmaf(dt.h[5][t], v2[jj], acc[k][5]);
-            acc[k][6] = fmaf(dt.h[6][t], v0[jj], acc[k][6]);
+            acc[k][0] = fma_tap<kMode>(dt.h[0][t], dtl.h[0][t], v0[jj], acc[k][0]);
+            acc[k][1] = fma_tap<kMode>(dt.h[1][t], dtl.h[1][t], v1[jj], acc[k][1]);
+            acc[k][2] = fma_tap<kMode>(dt.h[2][t], dtl.h[2][t], v2[jj], acc[k][2]);
+            acc[k][3] = fma_tap<kMode>(dt.h[3][t], dtl.h[3][t], v0[jj], acc[k][3]);
+            acc[k][4] = fma_tap<kMode>(dt.h[4][t], dtl.h[4][t], v1[jj], acc[k][4]);
+            acc[k][5] = fma_tap<kMode>(dt.h[5][t], dtl.h[5][t], v2[jj], acc[k][5]);
+            acc[k][6] = fma_tap<kMode>(dt.h[6][t], dtl.h[6][t], v0[jj], acc[k][6]);
           }
         }
       }
@@ -305,29 +359,30 @@ __device__ __forceinline__ void hpass_group(const float* buf, float* ring, int s
     const int steps = (taps + kRX - 1 + 3) / 4;
     for (int s4 = 0; s4 < steps; s4 += 2) {
       if (s4 >= 1 && 4 * s4 + 7 < taps) {
-        hpass_step<0, false>(r, cs, skh, taps, s4, c, acc);
-        hpass_step<4, false>(r, cs, skh, taps, s4 + 1, c, acc);
+        hpass_step<kMode, 0, false>(r, cs, skh, taps, s4, c, acc);
+        hpass_step<kMode, 4, false>(r, cs, skh, taps, s4 + 1, c, acc);
       } else {
-        hpass_step<0, true>(r, cs, skh, taps, s4, c, acc);
-        if (s4 + 1 < steps) hpass_step<4, true>(r, cs, skh, taps, s4 + 1, c, acc);
+        hpass_step<kMode, 0, true>(r, cs, skh, taps, s4, c, acc);
+        if (s4 + 1 < steps) hpass_step<kMode, 4, true>(r, cs, skh, taps, s4 + 1, c, acc);
       }
     }
   }
   float* out = ring + ((size_t)(slot0 + i) * 7) * kTileW + kRX * cg;
 #pragma unroll
   for (int f = 0; f < 7; ++f) {
-    float4 o = make_float4(acc[0][f], acc[1][f], acc[2][f], acc[3][f]);
-    if (kBf16) o = make_float4(bf16_round(o.x), bf16_round(o.y), bf16_round(o.z), bf16_round(o.w));
+    const float4 o = make_float4(convert<kMode>(acc[0][f]), convert<kMode>(acc[1][f]),
+                                 convert<kMode>(acc[2][f]), convert<kMode>(acc[3][f]));
     *reinterpret_cast<float4*>(out + f * kTileW) = o;
   }
 }
 
 // The vertical pass of one output chunk and its Delta-E: thread (column
 // col, rows 4 rg .. 4 rg + 3 of the chunk). Returns the sum of its valid
-// pixels' Delta-E, in row order.
-template <int kTaps>
+// pixels' Delta-E, in row order. The ring holds the mode's operands.
+template <int kTaps, int kMode>
 __device__ __forceinline__ float vpass_chunk(const float* ring, int slot, int ring_rows,
-                                             const DefaultTaps& dt, const float* skv, int taps,
+                                             const DefaultTaps& dt, const DefaultTaps& dtl,
+                                             const float* skv, int taps,
                                              const float* tgt, int y, int y_end, int x, int W,
                                              size_t plane, float wp0, float wp1, float wp2,
                                              int kind) {
@@ -355,7 +410,7 @@ __device__ __forceinline__ float vpass_chunk(const float* ring, int slot, int ri
         const int t = j - k;
         if (t >= 0 && t < kTaps) {
 #pragma unroll
-          for (int f = 0; f < 7; ++f) acc[k][f] = fmaf(dt.v[f][t], v[f], acc[k][f]);
+          for (int f = 0; f < 7; ++f) acc[k][f] = fma_tap<kMode>(dt.v[f][t], dtl.v[f][t], v[f], acc[k][f]);
         }
       }
     }
@@ -369,27 +424,27 @@ __device__ __forceinline__ float vpass_chunk(const float* ring, int slot, int ri
       float v[7];
       if (j0 >= 3 && j0 + 3 < taps) {
         row(v);
-        vpass_row<0, false>(skv, taps, j0, v, c, acc);
+        vpass_row<kMode, 0, false>(skv, taps, j0, v, c, acc);
         row(v);
-        vpass_row<1, false>(skv, taps, j0 + 1, v, c, acc);
+        vpass_row<kMode, 1, false>(skv, taps, j0 + 1, v, c, acc);
         row(v);
-        vpass_row<2, false>(skv, taps, j0 + 2, v, c, acc);
+        vpass_row<kMode, 2, false>(skv, taps, j0 + 2, v, c, acc);
         row(v);
-        vpass_row<3, false>(skv, taps, j0 + 3, v, c, acc);
+        vpass_row<kMode, 3, false>(skv, taps, j0 + 3, v, c, acc);
       } else {
         row(v);
-        vpass_row<0, true>(skv, taps, j0, v, c, acc);
+        vpass_row<kMode, 0, true>(skv, taps, j0, v, c, acc);
         if (j0 + 1 < rows) {
           row(v);
-          vpass_row<1, true>(skv, taps, j0 + 1, v, c, acc);
+          vpass_row<kMode, 1, true>(skv, taps, j0 + 1, v, c, acc);
         }
         if (j0 + 2 < rows) {
           row(v);
-          vpass_row<2, true>(skv, taps, j0 + 2, v, c, acc);
+          vpass_row<kMode, 2, true>(skv, taps, j0 + 2, v, c, acc);
         }
         if (j0 + 3 < rows) {
           row(v);
-          vpass_row<3, true>(skv, taps, j0 + 3, v, c, acc);
+          vpass_row<kMode, 3, true>(skv, taps, j0 + 3, v, c, acc);
         }
       }
     }
@@ -428,15 +483,16 @@ __device__ __forceinline__ void block_sum(float v, float* warp_sums, float* out)
 
 // One block: member blockIdx.z, columns [32 blockIdx.x, + 32), rows
 // [rows_per_block blockIdx.y, + rows_per_block). kTaps: the default taps
-// (coefficients in dt) or 0 (any odd taps whose layout fits, from kh, kv).
-template <int kTaps, bool kBf16, bool kSlabs>
+// (coefficients in dt, and in split mode their lo parts in dtl) or 0 (any
+// odd taps whose layout fits, from kh, kv).
+template <int kTaps, int kMode, bool kSlabs>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_kernel(const float* __restrict__ q, const float* __restrict__ left,
              const float* __restrict__ right, const float* __restrict__ target,
              const float* __restrict__ kh, const float* __restrict__ kv,
-             const __grid_constant__ DefaultTaps dt, int taps, int pop, int H, int W,
-             int rows_per_block, float wp0, float wp1, float wp2, int kind,
-             float* __restrict__ partials) {
+             const __grid_constant__ DefaultTaps dt, const __grid_constant__ DefaultTaps dtl,
+             int taps, int pop, int H, int W, int rows_per_block, float wp0, float wp1,
+             float wp2, int kind, float* __restrict__ partials) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float warp_sums[kThreads / 32];
   if (kTaps) taps = kTaps;
@@ -451,8 +507,8 @@ fused_kernel(const float* __restrict__ q, const float* __restrict__ left,
   if (!kTaps) {
     for (int i = threadIdx.x; i < 8 * taps; i += kThreads) {
       const int t = i >> 3, f = i & 7;
-      skh[i] = f < 7 ? load<kBf16>(kh + f * taps + t) : 0.0f;
-      skv[i] = f < 7 ? load<kBf16>(kv + f * taps + t) : 0.0f;
+      skh[i] = f < 7 ? load<kMode>(kh + f * taps + t) : 0.0f;
+      skv[i] = f < 7 ? load<kMode>(kv + f * taps + t) : 0.0f;
     }
   }
 
@@ -482,17 +538,17 @@ fused_kernel(const float* __restrict__ q, const float* __restrict__ left,
     } else {
       cp_async_wait<0>();
     }
-    if (kBf16) round_group(buf, sw);
+    if (kMode != kFp32) convert_group<kMode>(buf, sw);
     __syncthreads();  // the group is staged; the ring's old rows are read
-    hpass_group<kTaps, kBf16>(buf, ring, (g % G) * kTileH, dt, skh, taps, sw);
+    hpass_group<kTaps, kMode>(buf, ring, (g % G) * kTileH, dt, dtl, skh, taps, sw);
     __syncthreads();
     const int c = g - (G - 1);  // the output chunk whose window is now complete
     if (c >= 0) {
       const int rg = threadIdx.x / kTileW;
       const int y = y0 + c * kTileH + kRY * rg;
-      de += vpass_chunk<kTaps>(ring, (c % G) * kTileH + kRY * rg, ring_rows, dt, skv, taps, tgt,
-                               y, y_end, x0 + (threadIdx.x & (kTileW - 1)), W, plane, wp0, wp1,
-                               wp2, kind);
+      de += vpass_chunk<kTaps, kMode>(ring, (c % G) * kTileH + kRY * rg, ring_rows, dt, dtl, skv,
+                                      taps, tgt, y, y_end, x0 + (threadIdx.x & (kTileW - 1)), W,
+                                      plane, wp0, wp1, wp2, kind);
     }
   }
   block_sum(de, warp_sums,
@@ -502,32 +558,34 @@ fused_kernel(const float* __restrict__ q, const float* __restrict__ left,
 // ---- the two-pass path, for filters above the plan's MAX_FUSED_TAPS
 
 // One tap of the seven horizontal filters: the three opponent samples at
-// src, src + cs, src + 2 cs feed filters (0, 3, 6), (1, 4) and (2, 5).
-template <bool kBf16>
+// src, src + cs, src + 2 cs feed filters (0, 3, 6), (1, 4) and (2, 5); sk
+// holds the mode's coefficients.
+template <int kMode>
 __device__ __forceinline__ void tap7(float (&acc)[7], const float* sk, int taps, int t,
                                      const float* src, size_t cs) {
-  const float v0 = load<kBf16>(src);
-  const float v1 = load<kBf16>(src + cs);
-  const float v2 = load<kBf16>(src + 2 * cs);
-  acc[0] = fmaf(sk[0 * taps + t], v0, acc[0]);
-  acc[1] = fmaf(sk[1 * taps + t], v1, acc[1]);
-  acc[2] = fmaf(sk[2 * taps + t], v2, acc[2]);
-  acc[3] = fmaf(sk[3 * taps + t], v0, acc[3]);
-  acc[4] = fmaf(sk[4 * taps + t], v1, acc[4]);
-  acc[5] = fmaf(sk[5 * taps + t], v2, acc[5]);
-  acc[6] = fmaf(sk[6 * taps + t], v0, acc[6]);
+  const float v0 = load<kMode>(src);
+  const float v1 = load<kMode>(src + cs);
+  const float v2 = load<kMode>(src + 2 * cs);
+  acc[0] = fma_packed<kMode>(sk[0 * taps + t], v0, acc[0]);
+  acc[1] = fma_packed<kMode>(sk[1 * taps + t], v1, acc[1]);
+  acc[2] = fma_packed<kMode>(sk[2 * taps + t], v2, acc[2]);
+  acc[3] = fma_packed<kMode>(sk[3 * taps + t], v0, acc[3]);
+  acc[4] = fma_packed<kMode>(sk[4 * taps + t], v1, acc[4]);
+  acc[5] = fma_packed<kMode>(sk[5 * taps + t], v2, acc[5]);
+  acc[6] = fma_packed<kMode>(sk[6 * taps + t], v0, acc[6]);
 }
 
 // One thread per output pixel; kSlabs (B2s): column x - half + t < 0 reads
 // column x - half + t + half of `left`, one at W or beyond column
 // x - half + t - W of `right`, both (members, 3, H, half); no mirroring.
-template <bool kBf16, bool kSlabs>
+// Split mode writes the hi/lo pairs into t7; the other modes write f32.
+template <int kMode, bool kSlabs>
 __global__ void __launch_bounds__(kThreads)
 hpass_kernel(const float* __restrict__ q, const float* __restrict__ left,
              const float* __restrict__ right, const float* __restrict__ kh, int taps, int H,
              int W, float* __restrict__ t7) {
   extern __shared__ float sk[];  // 7 * taps
-  for (int i = threadIdx.x; i < 7 * taps; i += blockDim.x) sk[i] = load<kBf16>(kh + i);
+  for (int i = threadIdx.x; i < 7 * taps; i += blockDim.x) sk[i] = load<kMode>(kh + i);
   __syncthreads();
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -542,25 +600,25 @@ hpass_kernel(const float* __restrict__ q, const float* __restrict__ left,
   float acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (x >= half && x + half < W) {
     const float* src = row + (x - half);
-    for (int t = 0; t < taps; ++t) tap7<kBf16>(acc, sk, taps, t, src + t, plane);
+    for (int t = 0; t < taps; ++t) tap7<kMode>(acc, sk, taps, t, src + t, plane);
   } else {
     for (int t = 0; t < taps; ++t) {
       const int xi = x - half + t;
       if (kSlabs && xi < 0) {
-        tap7<kBf16>(acc, sk, taps, t, left + goff + (xi + half), gplane);
+        tap7<kMode>(acc, sk, taps, t, left + goff + (xi + half), gplane);
       } else if (kSlabs && xi >= W) {
-        tap7<kBf16>(acc, sk, taps, t, right + goff + (xi - W), gplane);
+        tap7<kMode>(acc, sk, taps, t, right + goff + (xi - W), gplane);
       } else {
-        tap7<kBf16>(acc, sk, taps, t, row + (kSlabs ? xi : mirror(xi, W)), plane);
+        tap7<kMode>(acc, sk, taps, t, row + (kSlabs ? xi : mirror(xi, W)), plane);
       }
     }
   }
   float* out = t7 + (size_t)p * 7 * plane + (size_t)y * W + x;
 #pragma unroll
-  for (int f = 0; f < 7; ++f) out[f * plane] = acc[f];
+  for (int f = 0; f < 7; ++f) out[f * plane] = kMode == kSplit ? split_pack(acc[f]) : acc[f];
 }
 
-template <bool kBf16>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 vpass_de_kernel(const float* __restrict__ t7, const float* __restrict__ target,
                 const float* __restrict__ kv, int taps, int pop, int H, int W, float wp0,
@@ -569,7 +627,7 @@ vpass_de_kernel(const float* __restrict__ t7, const float* __restrict__ target,
   __shared__ float warp_sums[kThreads / 32];
   __shared__ const float* image_target;
   if (threadIdx.x == 0) image_target = target + (size_t)(blockIdx.z / pop) * 3 * H * W;
-  for (int i = threadIdx.x; i < 7 * taps; i += blockDim.x) sk[i] = load<kBf16>(kv + i);
+  for (int i = threadIdx.x; i < 7 * taps; i += blockDim.x) sk[i] = load<kMode>(kv + i);
   __syncthreads();
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -585,7 +643,9 @@ vpass_de_kernel(const float* __restrict__ t7, const float* __restrict__ target,
       const float* r = col + (size_t)mirror(y - half + t, H) * W;
 #pragma unroll
       for (int f = 0; f < 7; ++f) {
-        acc[f] = fmaf(sk[f * taps + t], load<kBf16>(r + f * plane), acc[f]);
+        // split mode: t7 already holds the pairs
+        const float v = kMode == kSplit ? r[f * plane] : load<kMode>(r + f * plane);
+        acc[f] = fma_packed<kMode>(sk[f * taps + t], v, acc[f]);
       }
     }
     const float o0 = (acc[0] + acc[3]) + acc[6];
@@ -614,49 +674,69 @@ reduce_kernel(const float* __restrict__ partials, int n, float* __restrict__ sum
   if (threadIdx.x == 0) sums[blockIdx.x] = (float)s[0];
 }
 
-template <int kTaps, bool kBf16, bool kSlabs>
-int launch_fused(dim3 grid, size_t smem, cudaStream_t s, const float* q, const float* left,
-                 const float* right, const float* target, const float* kh, const float* kv,
-                 const DefaultTaps& dt, int taps, int pop, int H, int W, int rows_per_block,
-                 float wp0, float wp1, float wp2, int kind, float* partials) {
-  auto kernel = fused_kernel<kTaps, kBf16, kSlabs>;
+// one call's arguments, as the C entry point takes them
+struct Call {
+  const float *q, *left, *right, *target, *kh, *kv;
+  int taps, pop, H, W, rows_per_block;
+  float wp0, wp1, wp2;
+  int kind;
+  float *t7, *partials;
+  dim3 grid;
+  size_t smem;
+  cudaStream_t stream;
+};
+
+template <int kTaps, int kMode, bool kSlabs>
+int launch_fused(const Call& a, const DefaultTaps& dt, const DefaultTaps& dtl) {
+  auto kernel = fused_kernel<kTaps, kMode, kSlabs>;
   // the dynamic shared memory this variant may use on each device, raised
   // only when a launch needs more (not set again on every launch)
   static std::atomic<int> allowed[kMaxDevices];
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
   if (err == 0 && dev >= kMaxDevices) err = (int)cudaErrorInvalidDevice;
-  if (err == 0 && (int)smem > allowed[dev].load()) {
+  if (err == 0 && (int)a.smem > allowed[dev].load()) {
     err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem);
-    if (err == 0) allowed[dev].store((int)smem);
+                                    (int)a.smem);
+    if (err == 0) allowed[dev].store((int)a.smem);
   }
   if (err != 0) {
     cudaGetLastError();  // leave no error behind for the next launch to report
     return err;
   }
-  kernel<<<grid, kThreads, smem, s>>>(q, left, right, target, kh, kv, dt, taps, pop, H, W,
-                                      rows_per_block, wp0, wp1, wp2, kind, partials);
+  kernel<<<a.grid, kThreads, a.smem, a.stream>>>(a.q, a.left, a.right, a.target, a.kh, a.kv, dt,
+                                                 dtl, a.taps, a.pop, a.H, a.W, a.rows_per_block,
+                                                 a.wp0, a.wp1, a.wp2, a.kind, a.partials);
   return (int)cudaGetLastError();
 }
 
+template <int kTaps, int kMode>
+int launch_fused_mode(const Call& a, const DefaultTaps& dt, const DefaultTaps& dtl) {
+  return a.left != nullptr ? launch_fused<kTaps, kMode, true>(a, dt, dtl)
+                           : launch_fused<kTaps, kMode, false>(a, dt, dtl);
+}
+
 template <int kTaps>
-int launch_fused_variant(bool bf16, bool slabs, dim3 grid, size_t smem, cudaStream_t s,
-                         const float* q, const float* left, const float* right,
-                         const float* target, const float* kh, const float* kv,
-                         const DefaultTaps& dt, int taps, int pop, int H, int W, int rpb,
-                         float wp0, float wp1, float wp2, int kind, float* partials) {
-  if (bf16 && slabs)
-    return launch_fused<kTaps, true, true>(grid, smem, s, q, left, right, target, kh, kv, dt,
-                                           taps, pop, H, W, rpb, wp0, wp1, wp2, kind, partials);
-  if (bf16)
-    return launch_fused<kTaps, true, false>(grid, smem, s, q, left, right, target, kh, kv, dt,
-                                            taps, pop, H, W, rpb, wp0, wp1, wp2, kind, partials);
-  if (slabs)
-    return launch_fused<kTaps, false, true>(grid, smem, s, q, left, right, target, kh, kv, dt,
-                                            taps, pop, H, W, rpb, wp0, wp1, wp2, kind, partials);
-  return launch_fused<kTaps, false, false>(grid, smem, s, q, left, right, target, kh, kv, dt,
-                                           taps, pop, H, W, rpb, wp0, wp1, wp2, kind, partials);
+int launch_fused_variant(int mode, const Call& a, const DefaultTaps& dt, const DefaultTaps& dtl) {
+  if (mode == kBf16) return launch_fused_mode<kTaps, kBf16>(a, dt, dtl);
+  if (mode == kSplit) return launch_fused_mode<kTaps, kSplit>(a, dt, dtl);
+  return launch_fused_mode<kTaps, kFp32>(a, dt, dtl);
+}
+
+template <int kMode>
+int launch_two_pass(const Call& a) {
+  if (a.left != nullptr) {
+    hpass_kernel<kMode, true><<<a.grid, kThreads, a.smem, a.stream>>>(a.q, a.left, a.right, a.kh,
+                                                                      a.taps, a.H, a.W, a.t7);
+  } else {
+    hpass_kernel<kMode, false><<<a.grid, kThreads, a.smem, a.stream>>>(a.q, a.left, a.right, a.kh,
+                                                                       a.taps, a.H, a.W, a.t7);
+  }
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  vpass_de_kernel<kMode><<<a.grid, kThreads, a.smem, a.stream>>>(
+      a.t7, a.target, a.kv, a.taps, a.pop, a.H, a.W, a.wp0, a.wp1, a.wp2, a.kind, a.partials);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -667,74 +747,59 @@ int launch_fused_variant(bool bf16, bool slabs, dim3 grid, size_t smem, cudaStre
 // right of column W - 1); target (B, 3, H, W) LAB, one per image; kh, kv
 // (7, taps) horizontal / vertical filter stacks on the device; host_taps:
 // at the default 21 taps on the fused path, the same two stacks on the host
-// (kh then kv, 294 floats, already rounded to bf16 in bf16 mode), which the
+// (kh then kv, 294 floats, already rounded to bf16 in bf16 mode; in split
+// mode 588 floats, the two stacks' hi parts, then their lo parts), which the
 // kernel takes as FMA operands; else null. The plan (ops/fused_fitness.py
 // fused_plan): rows_per_block, the fused kernel's segment, a positive
 // multiple of 32, or 0 for the two-pass path (which then needs the t7
 // (members, 7, H, W) scratch); smem_bytes, a block's dynamic shared memory;
 // n_partials, the blocks of a member. partials: (members, n_partials)
 // scratch; sums (members,) output. All f32 contiguous. kind: 0 CIE76, 1
-// CIE94, 2 CIEDE2000; bf16: round the conv operands to bf16. Needs taps odd,
-// taps / 2 < H, without guards taps / 2 < W. Returns the first non-zero CUDA
-// error of the launches.
+// CIE94, 2 CIEDE2000; mode: 0 fp32, 1 bf16 (round the conv operands to
+// bf16), 2 split (the TPU's f32x3). Needs taps odd, taps / 2 < H, without
+// guards taps / 2 < W. Returns the first non-zero CUDA error of the launches.
 extern "C" int hq_fused_err_sums(const float* q, const float* left, const float* right,
                                  const float* target, const float* kh, const float* kv,
                                  const float* host_taps, int taps, int members, int pop, int H,
-                                 int W, float wp0, float wp1, float wp2, int kind, int bf16,
+                                 int W, float wp0, float wp1, float wp2, int kind, int mode,
                                  int rows_per_block, int smem_bytes, int n_partials, float* t7,
                                  float* partials, float* sums, void* stream) {
   const bool slabs = left != nullptr;
   const bool fused = rows_per_block > 0;
   if (members <= 0 || pop <= 0 || members % pop != 0 || H <= 0 || W <= 0 || taps <= 0 ||
       taps % 2 == 0 || taps / 2 >= H || (!slabs && taps / 2 >= W) || slabs != (right != nullptr) ||
-      kind < 0 || kind > 2 || members > 65535 || rows_per_block < 0 ||
-      rows_per_block % kTileH != 0 || smem_bytes < 0 || (size_t)smem_bytes > kMaxSmem ||
-      (host_taps != nullptr) != (fused && taps == kDefaultTaps))
+      kind < 0 || kind > 2 || mode < kFp32 || mode > kSplit || members > 65535 ||
+      rows_per_block < 0 || rows_per_block % kTileH != 0 || smem_bytes < 0 ||
+      (size_t)smem_bytes > kMaxSmem || (host_taps != nullptr) != (fused && taps == kDefaultTaps))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid = fused ? dim3((W + kTileW - 1) / kTileW, (H + rows_per_block - 1) / rows_per_block,
                                  members)
                           : dim3((W + kThreads - 1) / kThreads, H, members);
   if (grid.y > 65535 || (long long)grid.x * grid.y != n_partials) return (int)cudaErrorInvalidValue;
+  const Call a = {q, left, right, target, kh, kv, taps, pop, H, W, rows_per_block, wp0, wp1, wp2,
+                  kind, t7, partials, grid, (size_t)smem_bytes, (cudaStream_t)stream};
   int err = 0;
   if (fused) {
-    DefaultTaps dt = {};
+    DefaultTaps dt = {}, dtl = {};
     if (host_taps != nullptr) {
+      const int stack = 2 * 7 * kDefaultTaps;  // kh then kv
       for (int f = 0; f < 7; ++f)
         for (int t = 0; t < kDefaultTaps; ++t) {
           dt.h[f][t] = host_taps[f * kDefaultTaps + t];
           dt.v[f][t] = host_taps[(7 + f) * kDefaultTaps + t];
+          if (mode == kSplit) {
+            dtl.h[f][t] = host_taps[stack + f * kDefaultTaps + t];
+            dtl.v[f][t] = host_taps[stack + (7 + f) * kDefaultTaps + t];
+          }
         }
     }
-    err = host_taps != nullptr
-              ? launch_fused_variant<kDefaultTaps>(bf16 != 0, slabs, grid, smem_bytes, s, q, left,
-                                                   right, target, kh, kv, dt, taps, pop, H, W,
-                                                   rows_per_block, wp0, wp1, wp2, kind, partials)
-              : launch_fused_variant<0>(bf16 != 0, slabs, grid, smem_bytes, s, q, left, right,
-                                        target, kh, kv, dt, taps, pop, H, W, rows_per_block, wp0,
-                                        wp1, wp2, kind, partials);
+    err = host_taps != nullptr ? launch_fused_variant<kDefaultTaps>(mode, a, dt, dtl)
+                               : launch_fused_variant<0>(mode, a, dt, dtl);
   } else {
-    if (slabs && bf16) {
-      hpass_kernel<true, true><<<grid, kThreads, smem_bytes, s>>>(q, left, right, kh, taps, H, W, t7);
-    } else if (slabs) {
-      hpass_kernel<false, true><<<grid, kThreads, smem_bytes, s>>>(q, left, right, kh, taps, H, W, t7);
-    } else if (bf16) {
-      hpass_kernel<true, false><<<grid, kThreads, smem_bytes, s>>>(q, left, right, kh, taps, H, W, t7);
-    } else {
-      hpass_kernel<false, false><<<grid, kThreads, smem_bytes, s>>>(q, left, right, kh, taps, H, W, t7);
-    }
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    if (bf16) {
-      vpass_de_kernel<true><<<grid, kThreads, smem_bytes, s>>>(t7, target, kv, taps, pop, H, W,
-                                                             wp0, wp1, wp2, kind, partials);
-    } else {
-      vpass_de_kernel<false><<<grid, kThreads, smem_bytes, s>>>(t7, target, kv, taps, pop, H, W,
-                                                              wp0, wp1, wp2, kind, partials);
-    }
-    err = (int)cudaGetLastError();
+    err = mode == kBf16 ? launch_two_pass<kBf16>(a)
+                        : (mode == kSplit ? launch_two_pass<kSplit>(a) : launch_two_pass<kFp32>(a));
   }
   if (err != 0) return err;
-  reduce_kernel<<<members, kReduceThreads, 0, s>>>(partials, n_partials, sums);
+  reduce_kernel<<<members, kReduceThreads, 0, (cudaStream_t)stream>>>(partials, n_partials, sums);
   return (int)cudaGetLastError();
 }

@@ -13,14 +13,28 @@ precision "bf16" is the TPU kernel's single-pass DEFAULT dots: the opponent
 values and horizontal taps are rounded to bf16 for the horizontal pass, its
 f32 output and the vertical taps for the vertical pass; products are exact
 in f32 and accumulate in f32; the LAB and Delta-E tail is f32. "highest"
-and "f32x3" run fp32.
+and "f32x3" run fp32: the engine's parity path pins fp32.
+
+precision "split" is the TPU kernel's own f32x3 arithmetic, which a
+QuantizationConfig does not select (`tools.tpu_f32x3` reaches it for fault
+C2's emulation): every conv operand is split into bf16 hi = bf16(x) and lo
+= bf16(x - hi), each product is hi.hi + hi.lo + lo.hi (lo.lo dropped,
+`hybridquantization_tpu/ops/fused_fitness.py:369-393`, `:415-424`, the
+matrices `:550-555`), and the horizontal pass's output is kept as its hi/lo
+bf16 pair (the TPU's t7a/t7b scratches, `:388-392`, `:595-596`), which the
+vertical pass multiplies the same way. The pairs are numerics, not layout:
+they hold the intermediate to about 2^-16 relative, which is why the TPU
+kernel's f32x3 is about 1e-5 relative (its doc, `:42-51`). The LAB and
+Delta-E tail stays f32.
 
 On a CUDA tensor `fused_scielab_err_sums` launches the hand-written kernels
 of `csrc/fused_fitness.cu` (built at first use, ops/_cuda.py) or raises; on
 a CPU tensor it runs `fused_scielab_err_sums_reference`. The TPU layout
 devices (128-multiple mirror padding, block-banded filter matrices with
-R-folded edges, bf16 hi/lo scratch pairs, VMEM stripe budgets) are not
-needed: the kernel reflects at the true borders by index.
+R-folded edges, VMEM stripe budgets) are not needed: the kernel reflects at
+the true borders by index (an R-folded edge matrix multiplies the clamped
+edge block by reversed taps, product by product, which is the same
+function in every mode).
 
 `fused_plan` picks the kernel path: up to MAX_FUSED_TAPS taps (the default
 filter has 21) one fused kernel keeps the 7-channel intermediate in shared
@@ -49,9 +63,13 @@ from ..config import DELTA_E_KINDS, PRECISIONS
 from ..scielab.transform import SRC7
 from . import _cuda
 from .assign_kernel import bf16_round
-from .conv import conv1d_symmetric, conv1d_valid
+from .conv import conv1d_symmetric, conv1d_valid, mirror_index
 
 MAX_TAPS = 1025
+#: B2's conv arithmetic: the config's precisions, and "split" (module doc)
+CONV_PRECISIONS = PRECISIONS + ("split",)
+#: the kernel's mode for each: 0 fp32, 1 bf16, 2 split (csrc/fused_fitness.cu Mode)
+MODES = {"highest": 0, "f32x3": 0, "bf16": 1, "split": 2}
 # The fused kernel's layout (csrc/fused_fitness.cu, whose kTileW, kTileH,
 # kDefaultTaps, kMaxSmem, stage_width and ring_groups these mirror): 32-column
 # strips, rows staged, filtered and output 32 at a time, a segment of up to
@@ -96,17 +114,51 @@ def fused_plan(H: int, W: int, taps: int) -> dict:
             "partials": -(-W // 256) * H}
 
 
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) f32 tensors of x's bf16 split: hi = bf16(x), lo = bf16(x - hi),
+    both rounded to nearest even (the TPU kernel's `_split_bf16`)."""
+    hi = bf16_round(x)
+    return hi, bf16_round(x - hi)
+
+
 def kernel_taps(kh: torch.Tensor, kv: torch.Tensor):
     """The default filter's coefficients as the fused kernel takes them: kh
-    then kv (2 x 7 x 21 floats) on the host, as {False: fp32, True: rounded
-    to bf16} ctypes arrays; None for another number of taps. Made once where
-    the stacks are made (pipeline._make_context), so that a launch copies
-    nothing from the device."""
+    then kv (2 x 7 x 21 floats) on the host, as ctypes arrays by kernel mode
+    (MODES): 0 fp32, 1 rounded to bf16 (so [False] and [True] pick fp32 and
+    bf16), 2 the split's hi stacks then its lo stacks; None for another
+    number of taps. Made once where the stacks are made
+    (pipeline._make_context), so that a launch copies nothing from the
+    device."""
     if kh.shape[-1] != DEFAULT_TAPS:
         return None
     stacks = torch.stack([kh, kv]).detach().to("cpu", torch.float32)
-    floats = {False: stacks, True: bf16_round(stacks)}
-    return {bf16: (ctypes.c_float * t.numel())(*t.flatten().tolist()) for bf16, t in floats.items()}
+    floats = {0: stacks, 1: bf16_round(stacks), 2: torch.cat(split_bf16(stacks))}
+    return {mode: (ctypes.c_float * t.numel())(*t.flatten().tolist()) for mode, t in floats.items()}
+
+
+def _conv_pass(x: torch.Tensor, k: torch.Tensor, axis: int, precision: str, mirrored: bool) -> torch.Tensor:
+    """One pass of the filter along `axis`, mirrored at both ends or in valid
+    mode over guard columns, in B2's arithmetic: f32; bf16 operands; or
+    "split": each tap, in ascending order, adds th.xh, then th.xl, then
+    tl.xh to one f32 accumulator (the TPU kernel's three dots, lo.lo
+    dropped). The split's products are exact in f32, so each step rounds as
+    the CUDA kernel's fmaf does, in the kernel's order."""
+    if precision != "split":
+        if precision == "bf16":
+            x, k = bf16_round(x), bf16_round(k)
+        return (conv1d_symmetric if mirrored else conv1d_valid)(x, k, axis=axis)
+    C, taps = k.shape
+    if mirrored:
+        x = x.index_select(axis, mirror_index(x.shape[axis], taps // 2, x.device))
+    (xh, xl), (th, tl) = split_bf16(x), split_bf16(k.to(x.device, x.dtype).view(C, taps, 1, 1))
+    n = x.shape[axis] - taps + 1
+    out = torch.zeros_like(xh.narrow(axis, 0, n))
+    for t in range(taps):
+        h = xh.narrow(axis, t, n)
+        out += th[:, t] * h
+        out += th[:, t] * xl.narrow(axis, t, n)
+        out += tl[:, t] * h
+    return out
 
 
 def fused_scielab_err_sums_reference(
@@ -125,8 +177,10 @@ def fused_scielab_err_sums_reference(
     (B, pop) for a (B, pop, 3, H, W) bucket (each image run on its own).
 
     The filter is `scielab.transform.scielab_filter_stacked` written out,
-    with bf16's rounding points between its steps. With the column guards
-    (B2s) the horizontal pass runs in valid mode over [left | q | right]."""
+    with bf16's rounding points between its steps, or in "split" mode the
+    split products of each pass (`_conv_pass`; the horizontal output enters
+    the vertical pass as its hi/lo pair). With the column guards (B2s) the
+    horizontal pass runs in valid mode over [left | q | right]."""
     if q.dim() == 5:
         guards = zip(left_slab, right_slab) if left_slab is not None else [(None, None)] * len(q)
         return torch.stack([
@@ -135,17 +189,24 @@ def fused_scielab_err_sums_reference(
             )
             for qi, ti, (li, ri) in zip(q, target, guards)
         ])
-    rnd = bf16_round if precision == "bf16" else (lambda t: t)
+    return delta_e_reference(q, target, kh, kv, whitepoint, deltaE, precision=precision,
+                             left_slab=left_slab, right_slab=right_slab).sum(dim=(1, 2))
+
+
+def delta_e_reference(q, target, kh, kv, whitepoint, deltaE="CIE76", *, precision="f32x3",
+                      left_slab=None, right_slab=None) -> torch.Tensor:
+    """The plain version's (pop, H, W) per-pixel Delta-E of one image, before
+    the sum (`fused_scielab_err_sums_reference`'s arguments, q 4-D)."""
     if left_slab is None:
-        t = conv1d_symmetric(rnd(q[:, list(SRC7)]), rnd(kh), axis=-1)  # horizontal pass
+        t = _conv_pass(q[:, list(SRC7)], kh, -1, precision, mirrored=True)  # horizontal pass
     else:
-        t = conv1d_valid(rnd(torch.cat([left_slab, q, right_slab], -1)[:, list(SRC7)]), rnd(kh), axis=-1)
-    y = conv1d_symmetric(rnd(t), rnd(kv), axis=-2)  # vertical pass
+        x = torch.cat([left_slab, q, right_slab], -1)[:, list(SRC7)]
+        t = _conv_pass(x, kh, -1, precision, mirrored=False)
+    y = _conv_pass(t, kv, -2, precision, mirrored=True)  # vertical pass
     filtered = y[:, 0:3] + y[:, 3:6]
     filtered[:, 0] += y[:, 6]
     lab = cs.opp_to_lab(torch.movedim(filtered, -3, -1), whitepoint)
-    de = cs.DELTA_E_FNS[deltaE](torch.movedim(target, 0, -1), lab)
-    return de.sum(dim=(1, 2))
+    return cs.DELTA_E_FNS[deltaE](torch.movedim(target, 0, -1), lab)
 
 
 def _check(q, target, kh, kv, deltaE, precision, left_slab, right_slab):
@@ -171,8 +232,8 @@ def _check(q, target, kh, kv, deltaE, precision, left_slab, right_slab):
         raise ValueError(f"filter half-width {half} must be below H={H} and W={W} (W only without guards)")
     if deltaE not in DELTA_E_KINDS:
         raise ValueError(f"unknown deltaE kind {deltaE!r}; options: {list(DELTA_E_KINDS)}")
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}; options: {list(PRECISIONS)}")
+    if precision not in CONV_PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; options: {list(CONV_PRECISIONS)}")
     for name, t in (("q", q), ("target", target), ("kh", kh), ("kv", kv), *guards):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -203,7 +264,8 @@ def fused_scielab_err_sums(
         (scielab.transform.stacked_kernels).
       whitepoint: 3 floats.
       deltaE: "CIE76", "CIE94" or "CIEDE2000".
-      precision: "highest" | "f32x3" (fp32) | "bf16" (module doc).
+      precision: "highest" | "f32x3" (fp32) | "bf16" | "split" (the TPU's
+        f32x3; module doc).
       left_slab, right_slab: B2s's column guards, both or neither (module
         doc), each shaped like q with taps // 2 columns; without them the
         horizontal pass mirrors at both column borders.
@@ -228,12 +290,12 @@ def fused_scielab_err_sums(
     if slabs:
         left_slab, right_slab = left_slab.contiguous(), right_slab.contiguous()
     wp = [float(v) for v in whitepoint]
-    bf16 = precision == "bf16"
+    mode = MODES[precision]
     plan = fused_plan(H, W, taps)
     fused = plan["path"] == "fused"
     param = None
     if fused and taps == DEFAULT_TAPS:
-        param = (taps_on_host or kernel_taps(kh, kv))[bf16]
+        param = (taps_on_host or kernel_taps(kh, kv))[mode]
     lib = _cuda.library()
     dev = q.device
     # the two-pass path's intermediate; the fused kernel keeps it on the SM
@@ -243,12 +305,13 @@ def fused_scielab_err_sums(
     fused_scielab_err_sums.launches += 1
     fused_scielab_err_sums.slab_launches += slabs
     fused_scielab_err_sums.two_pass_launches += not fused
+    fused_scielab_err_sums.split_launches += mode == MODES["split"]
     _cuda.check(
         lib.hq_fused_err_sums(
             q.data_ptr(), left_slab.data_ptr() if slabs else None,
             right_slab.data_ptr() if slabs else None, target.data_ptr(), kh.data_ptr(), kv.data_ptr(),
             ctypes.addressof(param) if param is not None else None, taps, members, pop, H, W,
-            wp[0], wp[1], wp[2], DELTA_E_KINDS.index(deltaE), int(bf16), plan["rows_per_block"],
+            wp[0], wp[1], wp[2], DELTA_E_KINDS.index(deltaE), mode, plan["rows_per_block"],
             plan["smem_bytes"], plan["partials"], t7.data_ptr() if t7 is not None else None,
             partials.data_ptr(), sums.data_ptr(), _cuda.stream(dev),
         ),
@@ -263,3 +326,5 @@ fused_scielab_err_sums.launches = 0
 fused_scielab_err_sums.slab_launches = 0
 #: of those, the launches of the two-pass path (taps above MAX_FUSED_TAPS)
 fused_scielab_err_sums.two_pass_launches = 0
+#: of those, the launches in split mode (the TPU's f32x3)
+fused_scielab_err_sums.split_launches = 0

@@ -27,7 +27,7 @@ def _records(path):
 
 def test_device_draws_are_engine_runs_run(tmp_path):
     out = tmp_path / "device.jsonl"
-    assert chip_draws.main(_argv(out, draws="device", assign="fp32"), device="cpu") == 0
+    assert chip_draws.main(_argv(out, draws="device", fitness="fp32"), device="cpu") == 0
     ref = tmp_path / "engine.jsonl"
     assert engine_run.main(["--content", "natural", "--size", str(SIZE), "--colors", str(K), "--imax",
                             str(IMAX), "--seeds", "0,1", "--out", str(ref), "--cpu"]) == 0
@@ -37,15 +37,15 @@ def test_device_draws_are_engine_runs_run(tmp_path):
         assert (got[s]["draws"], got[s]["assign"]) == ("device", "fp32")
 
 
-@pytest.mark.parametrize("assign", ["fp32", "split"])
-def test_counts_leave_the_run_as_it_was(tmp_path, assign):
+@pytest.mark.parametrize("fitness", ["fp32", "split"])
+def test_counts_leave_the_run_as_it_was(tmp_path, fitness):
     counted, plain = tmp_path / "counted.jsonl", tmp_path / "plain.jsonl"
     counts = tmp_path / "counts.jsonl"
-    assert chip_draws.main(_argv(counted, draws="jax", assign=assign, counts=counts), device="cpu") == 0
-    assert chip_draws.main(_argv(plain, draws="jax", assign=assign), device="cpu") == 0
+    assert chip_draws.main(_argv(counted, draws="jax", fitness=fitness, counts=counts), device="cpu") == 0
+    assert chip_draws.main(_argv(plain, draws="jax", fitness=fitness), device="cpu") == 0
     a, b = _records(counted), _records(plain)
     assert [a[s]["deltaE"] for s in (0, 1)] == [b[s]["deltaE"] for s in (0, 1)]
-    assert a[0]["assign"] == assign and a[0]["draws"] == "jax"
+    assert (a[0]["assign"], a[0]["conv"], a[0]["draws"]) == (fitness, "fp32", "jax")
     series = [json.loads(line) for line in open(counts)]
     assert [r["seed"] for r in series] == [0, 1]
     for r in series:
@@ -61,8 +61,8 @@ def test_host_draws_run_with_either_fitness(tmp_path):
     """The host's mt19937 draws, with the engine's fitness and the emulated one;
     the records say which ran."""
     fp32, split = tmp_path / "fp32.jsonl", tmp_path / "split.jsonl"
-    assert chip_draws.main(_argv(fp32, draws="host", assign="fp32", seeds="0"), device="cpu") == 0
-    assert chip_draws.main(_argv(split, draws="host", assign="split", seeds="0"), device="cpu") == 0
+    assert chip_draws.main(_argv(fp32, draws="host", fitness="fp32", seeds="0"), device="cpu") == 0
+    assert chip_draws.main(_argv(split, draws="host", fitness="split", seeds="0"), device="cpu") == 0
     assert _records(fp32)[0]["assign"] == "fp32" and _records(split)[0]["assign"] == "split"
     assert np.isfinite(_records(split)[0]["deltaE"])
 
@@ -107,7 +107,7 @@ def test_chip_c2_stages_rehearse_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert "fp32 device reruns equal to the bank bit for bit on 2/2 seeds" in text
     assert "paired over 3 seeds" in (out / "paired_config1nat_fp32_jax.txt").read_text()
     assert "counts_config1nat_split_device.jsonl (1 seeds)" in (out / "counts_config1nat.txt").read_text()
-    assert (out / "report_config1nat_split_device_vs_oracle.txt").exists()
+    assert (out / "report_config1nat_split_device_vs_oracle_n3.txt").exists()
     assert sorted(_records(out / "draws_config1nat_fp32_jax_3-4.jsonl")) == [3, 4]
     assert (out / "report_config1nat_fp32_jax_3-4_vs_jax.txt").exists()
 

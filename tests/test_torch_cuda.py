@@ -41,6 +41,13 @@ SUM_RTOL = 1e-5  # B2: f32 filters in another FMA order; sums reduced in f64 vs 
 # split-bf16 scores: the tensor cores' f32 accumulation against the plain
 # version's sequential sum of the same 12 exact products (measured <= 4.8e-7 at 4K)
 SPLIT_RTOL = 1e-6
+# B2's split mode (the TPU kernel's f32x3), kernel against plain, relative:
+# 1.2e-7 at most at these tests' 211 x 333 inputs on 21, 29 and 123 taps
+# (NVIDIA H100 80GB HBM3, 700 W; test_b2_split_matches_plain_on_every_path
+# prints them under -rP); the fp32 mode must sit at least TEETH limits
+# from the plain split on the same inputs (1.4e-6 to 6.3e-6)
+B2_SPLIT_RTOL = 4e-7
+TEETH = 3
 # bf16 row maxima that may round the other way from plain (1e-5 measured at 4K;
 # a truncating kernel puts about half of them one ulp off)
 BF16_OFF_SHARE = 1e-4
@@ -983,3 +990,49 @@ def test_split_assign_per_run_ragged_runs_and_duplicates(cuda_device, run, tie_m
         assert bool((counts.sum(1) == P).all()) and int(counts[:, 40].sum()) == 0
     else:
         assert torch.equal(counts[:, 9], counts[:, 40])
+
+
+@pytest.mark.parametrize("dpi,dist", [(72, 45.0), (96, 45.0), (300, 60.0)])
+def test_b2_split_matches_plain_on_every_path(cuda_device, dpi, dist):
+    """B2's split mode (the TPU kernel's f32x3) against its plain version:
+    the fused kernel with the default taps as parameters (21) and through
+    shared memory (29), the two-pass path (123); the image axis bit-equal
+    to each image alone; B2s over 3 shards; and the fp32 mode at least
+    TEETH limits from the plain split."""
+    f = build_filters(dpi, dist)
+    kh, kv = stacked_kernels(f, False, cuda_device), stacked_kernels(f, True, cuda_device)
+    host = {"taps_on_host": ff.kernel_taps(kh, kv)}
+    q, target = _b2_inputs(cuda_device, 2, 211, 333, 17)
+    before = (ff.fused_scielab_err_sums.split_launches, ff.fused_scielab_err_sums.two_pass_launches)
+    got = ff.fused_scielab_err_sums(q, target, kh, kv, cs.WHITEPOINT_D65, "CIEDE2000", precision="split", **host)
+    torch.cuda.synchronize()
+    two_pass = ff.fused_plan(211, 333, kh.shape[1])["path"] == "two_pass"
+    assert (ff.fused_scielab_err_sums.split_launches, ff.fused_scielab_err_sums.two_pass_launches) == (
+        before[0] + 1, before[1] + two_pass)
+    want = ff.fused_scielab_err_sums_reference(q, target, kh, kv, cs.WHITEPOINT_D65, "CIEDE2000",
+                                               precision="split")
+    fp32 = ff.fused_scielab_err_sums(q, target, kh, kv, cs.WHITEPOINT_D65, "CIEDE2000", **host)
+    torch.testing.assert_close(got, want, rtol=B2_SPLIT_RTOL, atol=0)
+    rel, far = (((x.double() - want.double()).abs() / want.double().abs()).max().item() for x in (got, fp32))
+    assert far >= TEETH * B2_SPLIT_RTOL, (far, "the fp32 mode would pass as split")
+    for i in range(2):
+        single = ff.fused_scielab_err_sums(q[i], target[i], kh, kv, cs.WHITEPOINT_D65, "CIEDE2000",
+                                           precision="split", **host)
+        assert torch.equal(got[i], single)
+    # the shards hold the guards in split mode; a shard alone may not tell
+    # the modes apart at this limit (the fp32 mode's distance per shard is
+    # printed), so the split's arithmetic is held by the whole frame above
+    cols = ((0, 150), (150, 230), (230, 333))
+    shards = _b2s_shards(q[0], target[0], kh, kv, cols, "CIE76", "split")
+    for g, w in shards:
+        torch.testing.assert_close(g, w, rtol=B2_SPLIT_RTOL, atol=0)
+    whole = ff.fused_scielab_err_sums(q[0], target[0], kh, kv, cs.WHITEPOINT_D65, "CIE76", precision="split")
+    torch.testing.assert_close(sum(g.double() for g, _ in shards), whole.double(), rtol=B2_SPLIT_RTOL, atol=0)
+
+    def _rel(x, w):
+        return ((x.double() - w.double()).abs() / w.double().abs()).max().item()
+
+    fp32_shards = _b2s_shards(q[0], target[0], kh, kv, cols, "CIE76", "f32x3")
+    print(f"B2 split at {kh.shape[1]} taps: {rel:.3g} from plain (shards "
+          f"{max(_rel(g, w) for g, w in shards):.3g}), the fp32 mode {far:.3g} (shards "
+          + ", ".join(f"{_rel(f, w):.3g}" for (f, _), (_, w) in zip(fp32_shards, shards)) + ")")
