@@ -25,7 +25,9 @@ config-2 (1024x1024, K=64, smooth). Stages:
            (`fitness_parity_jaxcpu_<config>.log`, made on a CPU by
            `tests/jax_cpu_layer2.py`), the JAX engine's own f32x3 fitness
            off the TPU, with |whole emulation - JAX on the CPU| beside
-           them: one `fingerprint_<config>.txt` each, with the max and
+           them, and its XLA f32 branch (`fitness_parity_jaxxla_<config>.log`,
+           `tests/jax_cpu_layer2.py --branch xla`), with |fp32 - JAX XLA|
+           beside them: one `fingerprint_<config>.txt` each, with the max and
            median of each column; no anneal, no seed noise;
   banks    through `chip_draws.py` (imax 1500, pop 4), in `BANKS` order:
            (b) `--fitness split --draws device`, config-1 natural seeds
@@ -45,9 +47,10 @@ config-2 (1024x1024, K=64, smooth). Stages:
            frozen `tools/parity_report.py` (`report_<bank>_vs_jax.txt`,
            `report_<bank>_vs_oracle_n<seeds the oracle holds>.txt`, so a
            grown oracle adds reports and keeps the earlier ones); for (c),
-           (d) and (g) the
-           paired per-seed difference from the JAX bank (mean ± SE),
-           Pearson r and the seeds within 1e-3 relative; the counts by
+           (d) and (g) the pairing with the JAX bank seed by seed
+           (`tools.paired`: mean difference ± SE, per-seed sd, Pearson r,
+           the seeds within 1e-3 relative, and the sign test and median
+           over the diverged ones); the counts by
            window of 150 iterations, fp32 beside split; (f) against (e).
 
 `--oracle CONFIG:JOBS,...` runs the oracle's own seeds on this host's CPU
@@ -70,7 +73,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import json
 import math
 import os
 import re
@@ -82,6 +84,7 @@ import sys
 import time
 
 from chip_parity import VERDICT, _Tee, _verdict, report
+from hybridquantization_tpu_torch.tools.paired import load, paired
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 EVIDENCE = os.path.join(REPO, "docs", "evidence")
@@ -124,8 +127,6 @@ BANKS = (
 )
 #: seeds a chip_draws call takes, so that the deadline is checked between calls
 BATCH = 8
-#: paired seeds "agree" within this relative ΔE
-PAIR_REL = 1e-3
 WINDOW = 150
 IMAX = 1500
 
@@ -140,18 +141,6 @@ def counts_path(out: str, config: str, assign: str, draws: str) -> str:
 
 def oracle_path(out: str, config: str) -> str:
     return os.path.join(out, f"oracle_{config}.jsonl")
-
-
-def load(path: str) -> dict:
-    """{seed: record} of a JSONL bank (the last record of a seed wins)."""
-    out = {}
-    if os.path.exists(path):
-        with open(path) as f:
-            for line in f:
-                if line.strip():
-                    rec = json.loads(line)
-                    out[rec["seed"]] = rec
-    return out
 
 
 def _layer2_run(log: str, name: str, content: str, size: int, colors: int, conv: str, device) -> str:
@@ -229,10 +218,14 @@ def fingerprint(out: str, device) -> dict:
         verdict = _layer2_run(log, name, content, size, colors, "split", device)
         ports = {"fp32": os.path.join(H100, f"fitness_parity_{name}.log"),
                  "split": os.path.join(out, f"fitness_parity_split_{name}.log"), "f32x3": log}
-        jax_cpu = os.path.join(out, f"fitness_parity_jaxcpu_{name}.log")
         pairs = ()
-        if os.path.exists(jax_cpu):
-            ports["jax_cpu"], pairs = jax_cpu, (("f32x3", "jax_cpu"),)
+        # JAX's own fitness off the TPU, where a CPU run left its log: its f32x3
+        # Pallas branch beside the whole emulation, its XLA f32 branch beside fp32
+        for col, tag, mine in (("jax_cpu", "jaxcpu", "f32x3"), ("jax_xla", "jaxxla", "fp32")):
+            path = os.path.join(out, f"fitness_parity_{tag}_{name}.log")
+            if os.path.exists(path):
+                ports[col] = path
+                pairs += ((mine, col),)
         text, stats = fingerprint_table(name, os.path.join(EVIDENCE, tpu_log), ports, pairs)
         with open(os.path.join(out, f"fingerprint_{name}.txt"), "w") as f:
             f.write(text + "\n")
@@ -309,27 +302,6 @@ def stop_oracle(out: str, runs: list, deadline: float) -> None:
                    if s > 9 and "seconds" in r]
         print(f"[oracle] {config}: n={len(load(oracle_path(out, config)))} on a host of "
               f"{len(os.sched_getaffinity(0))} cores (exit {proc.returncode}); new seeds' seconds {seconds}", flush=True)
-
-
-def paired(bank: dict, jax_bank: dict) -> str:
-    """Per-seed ΔE against the JAX bank on the seeds both hold."""
-    seeds = sorted(set(bank) & set(jax_bank))
-    n = len(seeds)
-    if n < 3:
-        return f"paired: {n} common seeds"
-    a = [bank[s]["deltaE"] for s in seeds]
-    b = [jax_bank[s]["deltaE"] for s in seeds]
-    d = [x - y for x, y in zip(a, b)]
-    mean_b = sum(b) / n
-    md = sum(d) / n
-    se = math.sqrt(sum((x - md) ** 2 for x in d) / (n - 1) / n)
-    ma = sum(a) / n
-    cov = sum((x - ma) * (y - mean_b) for x, y in zip(a, b))
-    r = cov / math.sqrt(sum((x - ma) ** 2 for x in a) * sum((y - mean_b) ** 2 for y in b))
-    agree = sum(abs(x - y) <= PAIR_REL * abs(y) for x, y in zip(a, b))
-    return (f"paired over {n} seeds: port {ma:.4f}, JAX {mean_b:.4f}; difference {md:+.4f} ± {se:.4f} "
-            f"(SE) = {md / mean_b:+.2%} ± {se / mean_b:.2%}; Pearson r {r:.3f}; "
-            f"{agree}/{n} seeds within {PAIR_REL:g} relative")
 
 
 def counts_table(paths: list) -> str:

@@ -1,30 +1,42 @@
 #!/usr/bin/env python3
 """The quality-parity layers of docs/PARITY.md for the port, on one GPU.
 
-    python3 chip_parity.py [--out docs/evidence_h100]
+    python3 chip_parity.py [--out docs/evidence_h100] [--configs config2nat,config1_lab]
 
 Run from the root of a checkout. The port's engine is held to the f64
-oracle (`tests/oracle.py`) at the BASELINE configurations, in this order:
+oracle (`tests/oracle.py`) and to the JAX TPU engine at the BASELINE
+configurations, in this order:
 
   (a) layer 2, deterministic fitness parity: the port's `fitness_parity`
       (B1 and B2 on the card) against the oracle's fitness on identical
       random palettes, at config-1 (512x512, K=16) and config-2
       (1024x1024, K=64), each with smooth and natural content, 12 palette
       batches of population 4, tolerance 1e-3; one log each;
-  (b) layer 3, the anneal's final quality: the port's `engine_run` at imax
-      1500, population 4, f32x3, sRGB assignment, seeds 0-127 at config-1
-      smooth, 0-95 at config-1 natural and 0-47 at config-2 smooth (the
-      sizes of the JAX engine banks it is set against, config-2 cut to
-      half); one JSONL bank each;
-  (c) reports by the frozen `tools/parity_report.py`: each bank against
-      its oracle bank in `docs/evidence/` and against the JAX TPU engine
-      bank of the same configuration (both sides judged by the same oracle).
+  (b) layer 3, the anneal's final quality, for each `LAYER3` row (its
+      content, size, K, precision, conv precision and assignment space;
+      imax 1500, population 4): the port's `engine_run` from the card's
+      Philox generator (`engine_<row>.jsonl`: seeds 0-127 at config-1
+      smooth, 0-95 at config-1 natural, 0-47 elsewhere), and the port on
+      the JAX engine's own draw stream (`chip_draws.py --draws jax`, the
+      row's `paired` bank, on the JAX bank's seeds, 0-23 where no earlier
+      bank holds more); a row that `shares` another's banks (the
+      "highest" row, config-1's fp32 engine) anneals none of its own;
+  (c) reports: by the frozen `tools/parity_report.py`, each card bank
+      against its oracle bank in `docs/evidence/` (rows that have one) and
+      against the JAX TPU engine bank of the same configuration (both sides
+      judged by the same oracle); and each JAX-stream bank paired with the
+      JAX bank seed by seed (`tools.paired`, `paired_<row>_vs_jax.txt`).
 
-Every stage resumes: a layer-2 log that holds its verdict is kept, and a
-bank keeps its seeds, so a call cut by its time limit loses no seed.
-Then it prints each verdict. It exits 1 if a layer-2 run fails, or if the
-port's mean Delta-E is off the JAX engine's by more than 1% beyond one
-sigma of seed noise (a port fault), and non-zero on any error or without a
+`--configs` chooses the layer-3 rows (and the layer-2 runs of the same
+names); by default all of them. Every stage resumes: a layer-2 log that
+holds its verdict is kept, and a bank keeps its seeds, so a call cut by
+its time limit loses no seed. Then it prints each verdict and a `FAULT:`
+line for each fault. It exits 1 if a layer-2 run fails; if the card
+bank's mean Delta-E is off the JAX engine's by more than 1% beyond one
+sigma of seed noise (the unpaired gate, JAX_GAP); or if the paired gate
+fails: the JAX-stream bank's mean difference from the JAX bank lies more
+than 2 SE from zero and the sign test over its diverged seeds gives
+p < 0.05 (`tools.paired`). It exits non-zero on any error or without a
 CUDA device. The layer-3 verdicts against the oracle are recorded as the
 report prints them (PASS, INCONCLUSIVE or FAIL).
 
@@ -41,6 +53,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 EVIDENCE = os.path.join(REPO, "docs", "evidence")
@@ -49,15 +62,51 @@ EVIDENCE = os.path.join(REPO, "docs", "evidence")
 LAYER2 = (("config1", "smooth", 512, 16), ("config1nat", "natural", 512, 16),
           ("config2", "smooth", 1024, 64), ("config2nat", "natural", 1024, 64))
 LAYER2_ARGS = ["--palettes", "12", "--population", "4", "--tolerance", "1e-3"]
-#: layer 3: (name, content, size, colors, seeds, oracle bank, JAX engine bank)
+
+
+class Row(NamedTuple):
+    """A layer-3 configuration: its banks and the engine's mode."""
+
+    name: str
+    content: str
+    size: int
+    colors: int
+    seeds: str                # the card-Philox bank's (engine_run)
+    oracle: str | None        # its oracle bank in docs/evidence/; None: against JAX only
+    jax: str                  # the JAX TPU engine's bank in docs/evidence/
+    paired: str               # the bank on JAX's draw stream, relative to --out
+    paired_seeds: str
+    precision: str = "f32x3"  # the port's "highest" and "f32x3" are the same fp32 engine
+    conv_precision: str = ""
+    space: str = "srgb"
+    shares: str = ""          # the row whose two banks this row reads ("": its own)
+
+
+CONFIG1 = Row("config1", "smooth", 512, 16, "0-127", "oracle_config1_r04.jsonl", "engine_config1_r04.jsonl",
+              "draws_config1_jax.jsonl", "0-23")
 LAYER3 = (
-    ("config1", "smooth", 512, 16, "0-127", "oracle_config1_r04.jsonl", "engine_config1_r04.jsonl"),
-    ("config1nat", "natural", 512, 16, "0-95", "oracle_config1nat_r04.jsonl",
-     "engine_config1nat_r04.jsonl"),
-    ("config2", "smooth", 1024, 64, "0-47", "oracle_config2_r05.jsonl", "engine_config2_r04.jsonl"),
+    CONFIG1,
+    Row("config1nat", "natural", 512, 16, "0-95", "oracle_config1nat_r04.jsonl", "engine_config1nat_r04.jsonl",
+        os.path.join("c2", "draws_config1nat_fp32_jax.jsonl"), "0-95"),
+    Row("config2", "smooth", 1024, 64, "0-47", "oracle_config2_r05.jsonl", "engine_config2_r04.jsonl",
+        os.path.join("c2", "draws_config2_fp32_jax.jsonl"), "0-95"),
+    Row("config2nat", "natural", 1024, 64, "0-47", None, "engine_config2nat_r04.jsonl",
+        "draws_config2nat_jax.jsonl", "0-23"),
+    Row("config1_lab", "smooth", 512, 16, "0-47", None, "engine_config1_lab_r05.jsonl",
+        "draws_config1_lab_jax.jsonl", "0-23", space="lab"),
+    Row("config2_lab", "smooth", 1024, 64, "0-47", None, "engine_config2_lab_r05.jsonl",
+        "draws_config2_lab_jax.jsonl", "0-23", space="lab"),
+    Row("config1_bf16", "smooth", 512, 16, "0-47", None, "engine_config1_bf16_r04.jsonl",
+        "draws_config1_bf16_jax.jsonl", "0-23", precision="bf16"),
+    Row("config1_convbf16", "smooth", 512, 16, "0-47", None, "engine_config1_convbf16_r04.jsonl",
+        "draws_config1_convbf16_jax.jsonl", "0-23", conv_precision="bf16"),
+    # the port's "highest" is config-1's fp32 engine: its banks were bit-equal to config-1's
+    # (48/48 card seeds, 24/24 on JAX's stream), so the row reads config-1's against JAX's highest bank
+    CONFIG1._replace(name="config1_highest", oracle=None, jax="engine_config1_highest_r04.jsonl",
+                     shares="config1"),
 )
-LAYER3_ARGS = ["--imax", "1500", "--population", "4", "--precision", "f32x3",
-               "--assignment-space", "srgb"]
+#: both tools' anneal (chip_draws runs population 4, as engine_run is told to)
+LAYER3_ARGS = ["--imax", "1500"]
 #: the port against the JAX engine: a fault when |gap| - 1 sigma exceeds this
 JAX_GAP = 0.01
 VERDICT = "DETERMINISTIC PARITY:"
@@ -78,12 +127,15 @@ class _Tee:
         self.out.flush()
 
 
-def layer2(out: str, device) -> dict:
-    """Each layer-2 run's verdict line; runs those whose log has none."""
+def layer2(out: str, device, names=None) -> dict:
+    """Each layer-2 run's verdict line (those named in `names`, or all);
+    runs those whose log has none."""
     from hybridquantization_tpu_torch.tools import fitness_parity
 
     verdicts = {}
     for name, content, size, colors in LAYER2:
+        if names is not None and name not in names:
+            continue
         log = os.path.join(out, f"fitness_parity_{name}.log")
         if not _verdict(log):
             t0 = time.perf_counter()
@@ -103,18 +155,45 @@ def _verdict(log: str) -> str | None:
         return next((ln.strip() for ln in f if ln.startswith(VERDICT)), None)
 
 
-def layer3(out: str, device) -> None:
-    """Each bank to its full seed count (engine_run skips the seeds it has)."""
+def owners(rows) -> tuple:
+    """The rows whose banks `rows` read, each once, in order: a row that
+    shares another's banks stands for that row."""
+    by_name = {row.name: row for row in LAYER3}
+    out = {}
+    for row in rows:
+        owner = by_name[row.shares] if row.shares else row
+        out.setdefault(owner.name, owner)
+    return tuple(out.values())
+
+
+def card_bank(out: str, row: Row) -> str:
+    """The row's card-Philox bank (its sharer's when it shares)."""
+    return os.path.join(out, f"engine_{row.shares or row.name}.jsonl")
+
+
+def layer3(out: str, device, rows=LAYER3) -> None:
+    """Each row's two banks to their full seed counts (engine_run and
+    chip_draws skip the seeds they have): the card-Philox bank, then the
+    bank on JAX's draw stream; a row that shares another's banks runs that
+    row's, once."""
+    import chip_draws
     from hybridquantization_tpu_torch.tools import engine_run
 
-    for name, content, size, colors, seeds, _, _ in LAYER3:
-        t0 = time.perf_counter()
-        argv = ["--content", content, "--size", str(size), "--colors", str(colors),
-                "--seeds", seeds, *LAYER3_ARGS, "--out", os.path.join(out, f"engine_{name}.jsonl")]
-        print(f"[layer 3] {name}: engine_run {' '.join(argv)}", flush=True)
-        if engine_run.main(argv, device=device) != 0:
-            raise RuntimeError(f"engine_run failed for {name}")
-        print(f"[layer 3] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    for row in owners(rows):
+        shape = ["--content", row.content, "--size", str(row.size), "--colors", str(row.colors), *LAYER3_ARGS,
+                 "--precision", row.precision, "--conv-precision", row.conv_precision]
+        runs = (("engine_run", engine_run.main,
+                 [*shape, "--population", "4", "--assignment-space", row.space, "--seeds", row.seeds,
+                  "--out", card_bank(out, row)]),
+                ("chip_draws --draws jax", chip_draws.main,
+                 [*shape, "--space", row.space, "--draws", "jax", "--fitness", "fp32",
+                  "--seeds", row.paired_seeds, "--out", os.path.join(out, row.paired)]))
+        for tool, run, argv in runs:
+            t0 = time.perf_counter()
+            print(f"[layer 3] {row.name}: {tool} {' '.join(argv)}", flush=True)
+            if run(argv, device=device) != 0:
+                raise RuntimeError(f"{tool} failed for {row.name}")
+            print(f"[layer 3] {row.name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def report(engine: str, against: str, dest: str) -> tuple[str, float, float]:
@@ -135,24 +214,48 @@ def report(engine: str, against: str, dest: str) -> tuple[str, float, float]:
     return verdict, float(gap.group(1)) / 100, float(gap.group(2)) / 100
 
 
-def reports(out: str) -> list[str]:
-    """Every bank against its oracle bank and its JAX bank; the faults."""
+def reports(out: str, rows=LAYER3) -> list[str]:
+    """Each row's card bank against its oracle bank (where it has one) and
+    its JAX bank, and its JAX-stream bank paired with the JAX bank; the faults."""
+    from hybridquantization_tpu_torch.tools.paired import load, pair
+
     faults = []
-    for name, *_, oracle_bank, jax_bank in LAYER3:
-        bank = os.path.join(out, f"engine_{name}.jsonl")
-        for side, src in (("oracle", oracle_bank), ("jax", jax_bank)):
-            print(f"[report] {name}: port bank against {src}", flush=True)
+    for row in rows:
+        bank = card_bank(out, row)
+        sides = ((("oracle", row.oracle),) if row.oracle else ()) + (("jax", row.jax),)
+        for side, src in sides:
+            print(f"[report] {row.name}: port bank against {src}", flush=True)
             verdict, gap, sigma = report(bank, os.path.join(EVIDENCE, src),
-                                         os.path.join(out, f"report_{name}_vs_{side}.txt"))
+                                         os.path.join(out, f"report_{row.name}_vs_{side}.txt"))
             if side == "jax" and abs(gap) - sigma > JAX_GAP:
-                faults.append(f"{name}: Delta-E gap to the JAX engine {gap:+.2%} ± {sigma:.2%}")
+                faults.append(f"{row.name}: Delta-E gap to the JAX engine {gap:+.2%} ± {sigma:.2%}")
+        p = pair(load(os.path.join(out, row.paired)), load(os.path.join(EVIDENCE, row.jax)))
+        text = p.text() if p else "paired: fewer than 3 common seeds"
+        with open(os.path.join(out, f"paired_{row.name}_vs_jax.txt"), "w") as f:
+            f.write(f"{row.paired} against {row.jax}: {text}\n")
+        print(f"[paired] {row.name}: {text}", flush=True)
+        if p is None or p.fault:
+            faults.append(f"{row.name} paired: {text}")
     return faults
+
+
+def select(spec: str) -> tuple:
+    """The LAYER3 rows named in "a,b,..." ("" = all), in the table's order."""
+    names = [n for n in spec.split(",") if n]
+    unknown = set(names) - {row.name for row in LAYER3}
+    if unknown:
+        raise SystemExit(f"chip_parity: unknown configurations {sorted(unknown)}; "
+                         f"known: {','.join(row.name for row in LAYER3)}")
+    return tuple(row for row in LAYER3 if not names or row.name in names)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(REPO, "docs", "evidence_h100"))
+    ap.add_argument("--configs", default="", help="the layer-3 rows to run, e.g. config2nat,config1_lab "
+                    "(default all)")
     args = ap.parse_args(argv)
+    rows = select(args.configs)
     import torch
 
     if not torch.cuda.is_available():
@@ -164,18 +267,20 @@ def main(argv=None) -> int:
     dev = setup_device("cuda")
     print(device_line(dev), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    l2 = layer2(args.out, dev)
-    layer3(args.out, dev)
-    faults = reports(args.out)
+    l2 = layer2(args.out, dev, {row.name for row in rows})
+    layer3(args.out, dev, rows)
+    faults = reports(args.out, rows)
     faults += [f"{n}: {v}" for n, v in l2.items() if "PASS" not in v]
     for name, v in l2.items():
         print(f"layer 2 {name}: {v}")
-    for name, *_ in LAYER3:
-        for side in ("oracle", "jax"):
-            path = os.path.join(args.out, f"report_{name}_vs_{side}.txt")
+    for row in rows:
+        for side in ("oracle", "jax") if row.oracle else ("jax",):
+            path = os.path.join(args.out, f"report_{row.name}_vs_{side}.txt")
             with open(path) as f:
-                print(f"layer 3 {name} vs {side}: "
+                print(f"layer 3 {row.name} vs {side}: "
                       + next(ln for ln in f if ln.startswith("PARITY:")).strip())
+        with open(os.path.join(args.out, f"paired_{row.name}_vs_jax.txt")) as f:
+            print(f"layer 3 {row.name} paired vs jax: {f.read().strip()}")
     for fault in faults:
         print(f"FAULT: {fault}")
     return 1 if faults else 0

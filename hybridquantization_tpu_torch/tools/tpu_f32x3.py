@@ -22,9 +22,21 @@ split_assign at f32x3, then B2 at f32x3. On a CUDA context both launch
 their kernels, on a CPU context their plain versions run
 (`split_assign_reference`, `fused_scielab_err_sums_reference`); a failed
 build or launch raises. It is a diagnostic of fault C2 (ROADMAP §C),
-reached from `chip_draws.py --fitness split|f32x3`, `chip_c2.py` and
+reached from `chip_draws.py --fitness split|f32x3|xla`, `chip_c2.py` and
 this module's layer-2 run, never from the engine, whose parity path stays
 fp32.
+
+`make_xla_population_fitness(ctx, cfg)` is the fitness of JAX's other
+branch, the one it runs off the TPU (`use_pallas="auto"` on a CPU or GPU):
+its assignment at f32x3 is not the Pallas kernel's but
+`hybridquantization_tpu/ops/assign.py:_scores` (`:54-61`): three bf16
+dots hi.hi + hi.lo + lo.hi of the 3 features, then 2 * dots - |c|^2 with
+the bias in f32 (`xla_f32x3_index`, plain torch on either device: no TPU
+kernel computes it); then the engine's B2 in fp32. It flips a few pixels
+of a palette against the f64 nearest entry, where the engine's fp32
+scores flip next to none (`tests/jax_cpu_xla_scores.py`), and it is the
+function `tests/jax_cpu_engine.py --branch xla` anneals, to within B2's
+fp32 summation.
 
 Layer 2 with the emulated fitness (`fitness_parity`'s protocol, lines and
 flags; the flips are split_assign's own index for member 0 against the
@@ -90,6 +102,58 @@ def make_split_population_fitness(ctx: dict, cfg, conv: str = "fp32"):
             ctx["whitepoint"], cfg.deltaE, precision=conv_precision, taps_on_host=ctx["taps_on_host"],
         )
         usage = counts > 0
+        return sums / (H * W) + schedule.unused_penalty(usage, cfg.swasa.delta), usage
+
+    return pop_fitness
+
+
+def xla_f32x3_index(pixels: torch.Tensor, palette: torch.Tensor, block: int = 1 << 16) -> torch.Tensor:
+    """(P,) int64 index of the first max of JAX's XLA-branch scores at
+    precision "f32x3" for (P, 3) pixels and a (K, 3) palette: each operand
+    split into bf16 hi and lo, dots = (hi.hi + hi.lo) + lo.hi with each dot
+    summed over the features in order (every product is exact in f32), then
+    2 * dots - |c|^2, with |c|^2 = fma(c2, c2, fma(c1, c1, c0 * c0)) as
+    XLA's CPU compiler contracts `jnp.sum(palette * palette, -1)` (each fma
+    from the exact f64 product), in blocks of `block` pixels."""
+
+    def split(x):
+        hi = x.to(torch.bfloat16).to(torch.float32)
+        return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+    def dot(a, b):
+        return (a[:, None, 0] * b[None, :, 0] + a[:, None, 1] * b[None, :, 1]) + a[:, None, 2] * b[None, :, 2]
+
+    ch, cl = split(palette)
+    c = palette.double()
+    bias = (c[:, 0] * c[:, 0]).float()
+    for f in (1, 2):
+        bias = (c[:, f] * c[:, f] + bias.double()).float()
+    out = []
+    for x in pixels.split(block):
+        xh, xl = split(x)
+        dots = (dot(xh, ch) + dot(xh, cl)) + dot(xl, ch)
+        out.append(torch.argmax(2.0 * dots - bias[None, :], dim=-1))
+    return torch.cat(out)
+
+
+def make_xla_population_fitness(ctx: dict, cfg):
+    """(pop, K, 3) sRGB palettes -> ((pop,) errors, (pop, K) bool usage):
+    `xla_f32x3_index` per member, the winner's opponent colour, then the
+    engine's B2 in fp32, sums / (H*W) + delta * #unused: JAX's fitness off
+    the TPU (`make_population_fitness` without Pallas) at f32x3."""
+    _check(ctx, cfg)
+    H, W = ctx["target_lab"].shape[:2]
+    K = cfg.swasa.num_colors
+
+    def pop_fitness(palettes: torch.Tensor):
+        idx = torch.stack([xla_f32x3_index(ctx["assign_pixels"], p) for p in palettes])
+        opp = torch.gather(cs.srgb_to_opp(palettes), 1, idx[..., None].expand(-1, -1, 3))
+        sums = fused_scielab_err_sums(
+            opp.transpose(1, 2).reshape(palettes.shape[0], 3, H, W).contiguous(), ctx["target_planar"],
+            ctx["kh"], ctx["kv"], ctx["whitepoint"], cfg.deltaE, precision=cfg.conv_precision or cfg.precision,
+            taps_on_host=ctx["taps_on_host"],
+        )
+        usage = torch.stack([torch.bincount(i, minlength=K)[:K] > 0 for i in idx])
         return sums / (H * W) + schedule.unused_penalty(usage, cfg.swasa.delta), usage
 
     return pop_fitness

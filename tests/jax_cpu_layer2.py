@@ -1,9 +1,9 @@
 """Layer 2 (`fitness_parity`'s protocol) with the JAX engine's own f32x3
 fitness, evaluated on the CPU.
 
-    python tests/jax_cpu_layer2.py --content smooth --size 512 --colors 16 > LOG
+    python tests/jax_cpu_layer2.py [--branch f32x3|xla] --content smooth --size 512 --colors 16 > LOG
 
-The fitness is the Pallas branch of
+The fitness (`--branch f32x3`, the default) is the Pallas branch of
 `hybridquantization_tpu.pipeline.make_population_fitness` at
 precision="f32x3" in interpret mode: its assignment kernel and its fused
 S-CIELAB kernel split their operands into bf16 hi/lo themselves, so this is
@@ -14,6 +14,13 @@ flags are its own), so `chip_c2.py`'s fingerprint sets its per-palette gaps
 beside the TPU's (`docs/evidence/`) and the port's as the column "jax_cpu"
 when `docs/evidence_h100/c2/fitness_parity_jaxcpu_<config>.log` exists:
 how far the TPU's own arithmetic sits from its function off the TPU.
+`--branch xla` evaluates instead the fitness `tests/jax_cpu_engine.py
+--branch xla` anneals with: the default `use_pallas="auto"`, off the TPU
+JAX's function in XLA (`jax.jit` of `make_population_fitness`): f32, but
+its assignment at the default "f32x3" scores with three bf16 hi/lo dots
+(`hybridquantization_tpu/ops/assign.py:_scores`); its
+flips are JAX's `ops.assign.nearest_palette` of member 0 against the
+oracle's.
 
 Like the tests, this script imports jax and the port; it is not collected
 by pytest (a config-2 run takes minutes).
@@ -21,6 +28,7 @@ by pytest (a config-2 run takes minutes).
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 
@@ -37,6 +45,7 @@ from hybridquantization_tpu import HybridQuantizer as JQuantizer  # noqa: E402
 from hybridquantization_tpu import QuantizationConfig as JConfig  # noqa: E402
 from hybridquantization_tpu import SWASAConfig as JSWASA  # noqa: E402
 from hybridquantization_tpu import colorspace as jcs  # noqa: E402
+from hybridquantization_tpu.ops import assign as assign_ops  # noqa: E402
 from hybridquantization_tpu.ops import pallas_assign as pa  # noqa: E402
 from hybridquantization_tpu.pipeline import _make_context as j_make_context  # noqa: E402
 from hybridquantization_tpu.pipeline import make_population_fitness as j_pop_fitness  # noqa: E402
@@ -64,11 +73,39 @@ def jax_fitness(img: np.ndarray, cfg, device):
     return evaluate
 
 
+def xla_fitness(img: np.ndarray, cfg, device):
+    """`fitness_parity`'s evaluator for JAX's default branch off the TPU:
+    (numpy (pop,) JAX f32 errors, (P,) int32 JAX index of member 0)."""
+    sw = cfg.swasa
+    jcfg = JConfig(swasa=JSWASA(num_colors=sw.num_colors, population=sw.population))
+    jq = JQuantizer(jcfg)
+    fit = jax.jit(j_pop_fitness(j_make_context(jnp.asarray(img), jq.filters, jcfg), jcfg, jq.filters.half_width))
+    nearest = jax.jit(lambda x, p: assign_ops.nearest_palette(x, p, precision=jcfg.precision))
+    pixels = jnp.asarray(img.reshape(-1, 3))
+
+    def evaluate(pals: np.ndarray):
+        errors, _ = fit(jnp.asarray(pals))
+        return np.asarray(errors), np.asarray(nearest(pixels, jnp.asarray(pals[0])), np.int32)
+
+    return evaluate
+
+
+#: --branch -> (the log's first line, the evaluator)
+BRANCHES = {
+    "f32x3": ("the JAX engine's f32x3 Pallas branch in interpret mode on the CPU", jax_fitness),
+    "xla": ("the JAX engine's default branch off the TPU (f32, XLA) on the CPU", xla_fitness),
+}
+
+
 def main(argv=None) -> int:
     from hybridquantization_tpu_torch.tools import fitness_parity
 
-    print("fitness: the JAX engine's f32x3 Pallas branch in interpret mode on the CPU", flush=True)
-    return fitness_parity.main(argv, device="cpu", evaluator=jax_fitness)
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--branch", default="f32x3", choices=list(BRANCHES))
+    args, rest = ap.parse_known_args(argv)
+    title, evaluator = BRANCHES[args.branch]
+    print(f"fitness: {title}", flush=True)
+    return fitness_parity.main(rest, device="cpu", evaluator=evaluator)
 
 
 if __name__ == "__main__":

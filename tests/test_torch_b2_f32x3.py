@@ -326,7 +326,7 @@ def test_chip_c2_fingerprint_and_f32x3_banks_rehearse_on_the_cpu(tmp_path, monke
     assert not (out / "report_config1nat_fp32_device_rerun_vs_jax.txt").exists()
     text = capsys.readouterr().out
     assert "[fingerprint] tiny: |TPU - port|:" in text
-    # one flag names the fitness: fp32, split or f32x3, nothing else
-    assert list(chip_draws.FITNESS) == ["fp32", "split", "f32x3"]
+    # one flag names the fitness: fp32, split, f32x3 or xla, nothing else
+    assert list(chip_draws.FITNESS) == ["fp32", "split", "f32x3", "xla"]
     with pytest.raises(SystemExit):
         chip_draws.parse_args(["--fitness", "bf16"])

@@ -132,3 +132,107 @@ def test_chip_c2_layer2_runs_a_fail_again_and_returns_the_verdicts(tmp_path, mon
     assert first["tiny"].startswith("DETERMINISTIC PARITY: FAIL") and not chip_c2._passed(first["tiny"])
     assert chip_c2._passed(chip_c2.layer2(str(tmp_path), "cpu")["tiny"]) and len(calls) == 2
     assert chip_c2._passed(chip_c2.layer2(str(tmp_path), "cpu")["tiny"]) and len(calls) == 2
+
+
+def test_modes_and_series_on_the_cpu_flag(tmp_path):
+    """`--cpu` with the LAB space and bf16 scores: the records name the mode
+    as engine_run's do, and `--series` holds imax best errors that fall and
+    end at the run's best error, find_palette's own with the same draws."""
+    from hybridquantization_tpu_torch import HybridQuantizer, QuantizationConfig, SWASAConfig
+    from hybridquantization_tpu_torch.tools.parity_check import content_image
+
+    imax = 3
+    out, series, ref = tmp_path / "lab.jsonl", tmp_path / "series.jsonl", tmp_path / "engine.jsonl"
+    argv = _argv(out, draws="device", imax=imax, seeds="0", space="lab", precision="bf16", series=series)
+    assert chip_draws.main([*argv, "--cpu"]) == 0
+    rec = _records(out)[0]
+    assert (rec["precision"], rec["assignment_space"], rec["assign"], rec["conv"], rec["device"]) == (
+        "bf16", "lab", "bf16", "bf16", "cpu")
+    assert engine_run.main(["--content", "natural", "--size", str(SIZE), "--colors", str(K), "--imax",
+                            str(imax), "--seeds", "0", "--precision", "bf16", "--assignment-space", "lab",
+                            "--out", str(ref), "--cpu"]) == 0
+    assert (rec["deltaE"], rec["mse"]) == (_records(ref)[0]["deltaE"], _records(ref)[0]["mse"])
+    (line,) = [json.loads(x) for x in open(series)]
+    best = line["best_error"]
+    assert len(best) == imax and best == sorted(best, reverse=True) and line["deltaE"] == rec["deltaE"]
+    cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=K, population=POP, imax=imax), precision="bf16",
+                             assignment_space="lab")
+    _, info = HybridQuantizer(cfg, device="cpu").find_palette(
+        content_image("natural", SIZE), generator=torch.Generator().manual_seed(0), chunk_size=imax)
+    assert best == np.asarray(info["telemetry"]["best_error"], np.float32).tolist()
+    assert best[-1] == np.float32(info["best_error"])
+
+
+@pytest.mark.parametrize("flags", [["--space", "lab"], ["--precision", "bf16"], ["--conv-precision", "bf16"]])
+def test_the_emulated_fitness_refuses_other_modes(flags):
+    with pytest.raises(SystemExit):
+        chip_draws.parse_args(["--fitness", "split", *flags])
+
+
+def test_chip_parity_rehearses_a_row_with_no_oracle_bank(tmp_path, monkeypatch, capsys):
+    """chip_parity's layer 3 and reports on the CPU with a shrunk table: a
+    LAB row with no oracle bank gets its card bank, its JAX-stream bank, the
+    frozen report against JAX only and the paired report; a made-up JAX bank
+    1% under the port on all 6 seeds is a paired fault, one equal to the
+    port's JAX-stream bank is not."""
+    import chip_parity
+
+    evidence, out = tmp_path / "evidence", tmp_path / "out"
+    evidence.mkdir()
+    out.mkdir()
+    imax = 3
+    monkeypatch.setattr(chip_parity, "EVIDENCE", str(evidence))
+    monkeypatch.setattr(chip_parity, "LAYER3_ARGS", ["--imax", str(imax)])
+    row = chip_parity.Row("tiny_lab", "natural", SIZE, K, "0-1", None, "jax.jsonl", "draws_tiny_lab_jax.jsonl",
+                          "0-5", space="lab")
+    chip_parity.layer3(str(out), "cpu", (row,))
+    port = _records(out / "engine_tiny_lab.jsonl")
+    stream = _records(out / row.paired)
+    assert (sorted(port), sorted(stream)) == ([0, 1], [0, 1, 2, 3, 4, 5])
+    assert {r["assignment_space"] for r in (*port.values(), *stream.values())} == {"lab"}
+    cfg = {"size": SIZE, "colors": K, "imax": imax, "population": POP, "content": "natural", "precision": "f32x3",
+           "assignment_space": "lab"}
+    for scale, fault in ((1.0, False), (0.99, True)):
+        jax_bank = [{**cfg, "seed": s, "deltaE": r["deltaE"] * scale * (1 + 1e-4 * s), "mse": r["mse"]}
+                    for s, r in stream.items()]
+        (evidence / "jax.jsonl").write_text("".join(json.dumps(r) + "\n" for r in jax_bank))
+        faults = chip_parity.reports(str(out), (row,))
+        assert (out / "report_tiny_lab_vs_jax.txt").exists()
+        assert not (out / "report_tiny_lab_vs_oracle.txt").exists()
+        text = (out / "paired_tiny_lab_vs_jax.txt").read_text()
+        assert text.startswith("draws_tiny_lab_jax.jsonl against jax.jsonl: paired over 6 seeds")
+        assert any(f.startswith("tiny_lab paired: ") for f in faults) is fault
+    assert "[paired] tiny_lab" in capsys.readouterr().out
+
+
+def test_chip_parity_selects_its_rows():
+    import chip_parity
+
+    assert [r.name for r in chip_parity.select("config1_lab,config2nat")] == ["config2nat", "config1_lab"]
+    assert len(chip_parity.select("")) == len(chip_parity.LAYER3) == 9
+    with pytest.raises(SystemExit):
+        chip_parity.select("config9")
+
+
+def test_the_xla_fitness_runs_and_is_recorded(tmp_path):
+    """`--fitness xla` (JAX's fitness off the TPU, emulated) anneals on the
+    CPU and records its arithmetic; it takes the default mode only."""
+    out = tmp_path / "xla.jsonl"
+    assert chip_draws.main([*_argv(out, draws="jax", imax=3, seeds="0", fitness="xla"), "--cpu"]) == 0
+    rec = _records(out)[0]
+    assert (rec["assign"], rec["conv"], rec["draws"]) == ("xla", "fp32", "jax") and np.isfinite(rec["deltaE"])
+    with pytest.raises(SystemExit):
+        chip_draws.parse_args(["--fitness", "xla", "--space", "lab"])
+
+
+def test_chip_parity_highest_row_reads_config1_banks():
+    """The "highest" row anneals nothing of its own: chosen alone or beside
+    config-1 it runs config-1's two banks once and reports them."""
+    import chip_parity
+
+    (highest,) = chip_parity.select("config1_highest")
+    assert chip_parity.owners((highest,)) == (chip_parity.CONFIG1,)
+    assert chip_parity.owners(chip_parity.select("config1,config1_highest")) == (chip_parity.CONFIG1,)
+    assert chip_parity.card_bank("out", highest) == chip_parity.card_bank("out", chip_parity.CONFIG1)
+    assert (highest.paired, highest.oracle, highest.jax) == (
+        chip_parity.CONFIG1.paired, None, "engine_config1_highest_r04.jsonl")

@@ -1,0 +1,141 @@
+"""`tests/jax_cpu_engine.py`: the JAX engine's layer-3 run on the CPU, at a
+tiny size, against the frozen `tools/engine_run.py` run on the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+from tests import jax_cpu_engine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SIZE, K, IMAX = 32, 4, 3
+FLAGS = ["--content", "natural", "--size", str(SIZE), "--colors", str(K), "--imax", str(IMAX)]
+#: the frozen tool's record keys (tools/engine_run.py)
+KEYS = {"seed", "deltaE", "mse", "precision", "size", "colors", "imax", "population", "content",
+        "assignment_space", "anneal_seconds"}
+
+
+def _records(path):
+    return [json.loads(line) for line in open(path)]
+
+
+def test_xla_branch_is_the_frozen_engine_run_off_the_tpu(tmp_path):
+    out, series = tmp_path / "xla.jsonl", tmp_path / "series.jsonl"
+    assert jax_cpu_engine.main([*FLAGS, "--seeds", "0", "--branch", "xla", "--out", str(out),
+                                "--series", str(series)]) == 0
+    ref = tmp_path / "frozen.jsonl"
+    run = ("import jax; jax.config.update('jax_platforms', 'cpu'); import runpy, sys; "
+           f"sys.argv = ['engine_run.py', *{[*FLAGS, '--seeds', '0', '--out', str(ref)]!r}]; "
+           "runpy.run_path('tools/engine_run.py', run_name='__main__')")
+    env = {**os.environ, "HQ_TPU_CACHE_DIR": str(tmp_path / "cache"), "JAX_PLATFORMS": "cpu"}
+    r = subprocess.run([sys.executable, "-c", run], cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    (got,), (want,) = _records(out), _records(ref)
+    assert (got["deltaE"], got["mse"]) == (want["deltaE"], want["mse"])
+    assert KEYS <= set(got) and (got["engine"], got["branch"]) == ("jax-cpu", "xla")
+    (line,) = _records(series)
+    best = line["best_error"]
+    assert len(best) == IMAX and best == sorted(best, reverse=True) and line["deltaE"] == got["deltaE"]
+
+
+def test_f32x3_branch_runs_and_resumes(tmp_path, capsys):
+    out, series = tmp_path / "f32x3.jsonl", tmp_path / "series.jsonl"
+    argv = [*FLAGS, "--branch", "f32x3", "--out", str(out), "--series", str(series)]
+    assert jax_cpu_engine.main([*argv, "--seeds", "0"]) == 0
+    assert jax_cpu_engine.main([*argv, "--seeds", "0-1"]) == 0
+    assert "seeds todo [1] (already done: [0])" in capsys.readouterr().out
+    recs = _records(out)
+    assert [r["seed"] for r in recs] == [0, 1] and [r["seed"] for r in _records(series)] == [0, 1]
+    assert {(r["branch"], r["precision"]) for r in recs} == {("f32x3", "f32x3")}
+    assert all(np.isfinite(r["deltaE"]) for r in recs)
+    assert jax_cpu_engine.main([*argv, "--seeds", "0-1"]) == 0
+    assert len(_records(out)) == 2
+
+
+def test_steps_side_by_side_take_the_same_decisions_at_a_tiny_size(capsys):
+    """`tests/jax_cpu_steps.py` steps JAX's anneal and the port's on the same
+    draws; at 32^2, K=4 their first iterations decide alike."""
+    from tests import jax_cpu_steps
+
+    assert jax_cpu_steps.main(["--size", str(SIZE), "--colors", str(K), "--imax", "20", "--until", "5"]) == 0
+    out = capsys.readouterr().out
+    assert "start palettes equal" in out and "no decision differs through iteration 5" in out
+
+
+def _xla_branch(size):
+    """(image, JAX's jitted XLA-branch population fitness, its f32x3 index,
+    the port's CPU context and config) at `size`^2 natural, K=16."""
+    import jax
+    import jax.numpy as jnp
+
+    from hybridquantization_tpu import HybridQuantizer as JQuantizer
+    from hybridquantization_tpu import QuantizationConfig as JConfig
+    from hybridquantization_tpu import SWASAConfig as JSWASA
+    from hybridquantization_tpu.ops import assign as jassign
+    from hybridquantization_tpu.pipeline import _make_context as j_make_context
+    from hybridquantization_tpu.pipeline import make_population_fitness as j_pop_fitness
+    from hybridquantization_tpu_torch import QuantizationConfig, SWASAConfig
+    from hybridquantization_tpu_torch.pipeline import _make_context
+    from hybridquantization_tpu_torch.scielab.filters import build_filters
+    from hybridquantization_tpu_torch.tools.parity_check import content_image
+
+    img = content_image("natural", size)
+    jcfg = JConfig(swasa=JSWASA(num_colors=16, population=4))
+    jq = JQuantizer(jcfg)
+    jfit = jax.jit(j_pop_fitness(j_make_context(jnp.asarray(img), jq.filters, jcfg), jcfg,
+                                 jq.filters.half_width))
+    jidx = jax.jit(lambda x, p: jassign.nearest_palette(x, p, precision=jcfg.precision))
+    cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=16, population=4))
+    return img, jfit, jidx, _make_context(img, build_filters(), cfg, "cpu"), cfg
+
+
+def test_xla_index_is_the_jax_xla_branch_assignment():
+    """`tpu_f32x3.xla_f32x3_index` is JAX's XLA-branch assignment at f32x3
+    pixel for pixel at 512^2 natural, 8 palettes; the engine's fp32 scores
+    part from it on some pixels, so the check can tell the two apart."""
+    import torch
+
+    from hybridquantization_tpu_torch.ops.assign import nearest_palette
+    from hybridquantization_tpu_torch.tools.tpu_f32x3 import xla_f32x3_index
+
+    img, _, jidx, ctx, _ = _xla_branch(512)
+    pixels = img.reshape(-1, 3)
+    rng = np.random.default_rng(11)
+    fp32_flips = 0
+    for pal in rng.random((8, 16, 3), dtype=np.float32):
+        want = np.asarray(jidx(pixels, pal))
+        got = xla_f32x3_index(ctx["assign_pixels"], torch.from_numpy(pal)).numpy()
+        np.testing.assert_array_equal(got, want)
+        fp32_flips += int((nearest_palette(ctx["assign_pixels"], torch.from_numpy(pal)).numpy() != want).sum())
+    assert fp32_flips > 0
+
+
+#: the XLA-branch fitness against JAX's, relative: B2's fp32 sums against
+#: XLA's banded-matmul conv and f32 mean (1.1e-7 median, 4.4e-7 most over
+#: 32 palettes at 512^2 natural, K=16)
+XLA_RTOL = 1e-6
+
+
+def test_xla_fitness_is_the_jax_xla_branch_fitness():
+    """`tpu_f32x3.make_xla_population_fitness` meets JAX's XLA-branch
+    fitness within XLA_RTOL at 512^2 natural, 8 palettes; the engine's fp32
+    fitness misses it by more than 3 limits on at least one of them."""
+    import torch
+
+    from hybridquantization_tpu_torch.pipeline import make_population_fitness
+    from hybridquantization_tpu_torch.tools.tpu_f32x3 import make_xla_population_fitness
+
+    _, jfit, _, ctx, cfg = _xla_branch(512)
+    xla, fp32 = make_xla_population_fitness(ctx, cfg), make_population_fitness(ctx, cfg)
+    rng = np.random.default_rng(11)
+    far = 0.0
+    for pals in rng.random((2, 4, 16, 3), dtype=np.float32):
+        want = np.asarray(jfit(pals)[0], np.float64)
+        got = xla(torch.from_numpy(pals))[0].numpy().astype(np.float64)
+        np.testing.assert_allclose(got, want, rtol=XLA_RTOL, atol=0)
+        far = max(far, float(np.max(np.abs(fp32(torch.from_numpy(pals))[0].numpy() - want) / want)))
+    assert far > 3 * XLA_RTOL
