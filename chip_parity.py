@@ -25,7 +25,11 @@ configurations, in this order:
       against its oracle bank in `docs/evidence/` (rows that have one) and
       against the JAX TPU engine bank of the same configuration (both sides
       judged by the same oracle); and each JAX-stream bank paired with the
-      JAX bank seed by seed (`tools.paired`, `paired_<row>_vs_jax.txt`).
+      JAX bank seed by seed (`tools.paired`, `paired_<row>_vs_jax.txt`);
+      and where the row names a committed off-TPU JAX bank (`jax_cpu`,
+      config-1 natural: `tests/jax_cpu_engine.py --branch xla --precision
+      highest`, JAX's f32 engine on the CPU), the JAX-stream bank paired
+      with that bank (`paired_<row>_vs_jaxcpu.txt`).
 
 `--configs` chooses the layer-3 rows (and the layer-2 runs of the same
 names); by default all of them. Every stage resumes: a layer-2 log that
@@ -36,9 +40,17 @@ bank's mean Delta-E is off the JAX engine's by more than 1% beyond one
 sigma of seed noise (the unpaired gate, JAX_GAP); or if the paired gate
 fails: the JAX-stream bank's mean difference from the JAX bank lies more
 than 2 SE from zero and the sign test over its diverged seeds gives
-p < 0.05 (`tools.paired`). It exits non-zero on any error or without a
-CUDA device. The layer-3 verdicts against the oracle are recorded as the
-report prints them (PASS, INCONCLUSIVE or FAIL).
+p < 0.05 (`tools.paired`); or if the off-TPU gate fails: the JAX-stream
+bank's mean difference from the off-TPU bank lies more than 2 SE from zero
+OR the sign test gives p < 0.05 (`Paired.same_function_fault`, a
+`FAULT: <row> jax-cpu:` line). That gate anneals nothing, and it may be
+stricter than the TPU-paired one: the port's fp32 engine and JAX's engine
+at precision "highest" compute one function and draw one stream, so they
+are meant to agree seed by seed, and a minority of seeds hit hard one way
+is a fault there, where against the TPU's own arithmetic it is not. It
+exits non-zero on any error or without a CUDA device. The layer-3
+verdicts against the oracle are recorded as the report prints them
+(PASS, INCONCLUSIVE or FAIL).
 
 Imports torch, numpy, scipy (the oracle), the standard library and the
 port; never jax.
@@ -57,6 +69,7 @@ from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 EVIDENCE = os.path.join(REPO, "docs", "evidence")
+EVIDENCE_H100 = os.path.join(REPO, "docs", "evidence_h100")
 
 #: layer 2: (name, content, size, colors)
 LAYER2 = (("config1", "smooth", 512, 16), ("config1nat", "natural", 512, 16),
@@ -80,6 +93,7 @@ class Row(NamedTuple):
     conv_precision: str = ""
     space: str = "srgb"
     shares: str = ""          # the row whose two banks this row reads ("": its own)
+    jax_cpu: str = ""         # a committed off-TPU JAX bank of the port's function, in docs/evidence_h100/
 
 
 CONFIG1 = Row("config1", "smooth", 512, 16, "0-127", "oracle_config1_r04.jsonl", "engine_config1_r04.jsonl",
@@ -87,7 +101,8 @@ CONFIG1 = Row("config1", "smooth", 512, 16, "0-127", "oracle_config1_r04.jsonl",
 LAYER3 = (
     CONFIG1,
     Row("config1nat", "natural", 512, 16, "0-95", "oracle_config1nat_r04.jsonl", "engine_config1nat_r04.jsonl",
-        os.path.join("c2", "draws_config1nat_fp32_jax.jsonl"), "0-95"),
+        os.path.join("c2", "draws_config1nat_fp32_jax.jsonl"), "0-95",
+        jax_cpu=os.path.join("c2", "jaxcpu_config1nat_highest.jsonl")),
     Row("config2", "smooth", 1024, 64, "0-47", "oracle_config2_r05.jsonl", "engine_config2_r04.jsonl",
         os.path.join("c2", "draws_config2_fp32_jax.jsonl"), "0-95"),
     Row("config2nat", "natural", 1024, 64, "0-47", None, "engine_config2nat_r04.jsonl",
@@ -188,6 +203,7 @@ def layer3(out: str, device, rows=LAYER3) -> None:
                 ("chip_draws --draws jax", chip_draws.main,
                  [*shape, "--space", row.space, "--draws", "jax", "--fitness", "fp32",
                   "--seeds", row.paired_seeds, "--out", os.path.join(out, row.paired)]))
+        os.makedirs(os.path.dirname(os.path.join(out, row.paired)), exist_ok=True)
         for tool, run, argv in runs:
             t0 = time.perf_counter()
             print(f"[layer 3] {row.name}: {tool} {' '.join(argv)}", flush=True)
@@ -236,7 +252,23 @@ def reports(out: str, rows=LAYER3) -> list[str]:
         print(f"[paired] {row.name}: {text}", flush=True)
         if p is None or p.fault:
             faults.append(f"{row.name} paired: {text}")
+        if row.jax_cpu:
+            faults += _jax_cpu_gate(out, row)
     return faults
+
+
+def _jax_cpu_gate(out: str, row: Row) -> list[str]:
+    """The row's JAX-stream bank paired with its off-TPU JAX bank, written
+    to `paired_<row>_vs_jaxcpu.txt`; its fault, if the same-function gate
+    fails."""
+    from hybridquantization_tpu_torch.tools.paired import load, pair
+
+    p = pair(load(os.path.join(out, row.paired)), load(os.path.join(EVIDENCE_H100, row.jax_cpu)))
+    text = f"{p.text('port', 'JAX off the TPU')}; {p.rule_text()}" if p else "paired: fewer than 3 common seeds"
+    with open(os.path.join(out, f"paired_{row.name}_vs_jaxcpu.txt"), "w") as f:
+        f.write(f"{row.paired} against {row.jax_cpu}: {text}\n")
+    print(f"[paired] {row.name} jax-cpu: {text}", flush=True)
+    return [f"{row.name} jax-cpu: {text}"] if p is None or p.same_function_fault else []
 
 
 def select(spec: str) -> tuple:
@@ -281,6 +313,9 @@ def main(argv=None) -> int:
                       + next(ln for ln in f if ln.startswith("PARITY:")).strip())
         with open(os.path.join(args.out, f"paired_{row.name}_vs_jax.txt")) as f:
             print(f"layer 3 {row.name} paired vs jax: {f.read().strip()}")
+        if row.jax_cpu:
+            with open(os.path.join(args.out, f"paired_{row.name}_vs_jaxcpu.txt")) as f:
+                print(f"layer 3 {row.name} paired vs jax-cpu: {f.read().strip()}")
     for fault in faults:
         print(f"FAULT: {fault}")
     return 1 if faults else 0

@@ -1,7 +1,7 @@
 """Seed-by-seed pairing of two layer-3 banks, and the paired gate.
 
     python -m hybridquantization_tpu_torch.tools.paired BANK REF [--labels port,JAX] [--out TXT]
-        [--basins THIRD] [--series BANK_SERIES THIRD_SERIES [--series-rel 1e-6]]
+        [--verdict] [--bitwise] [--basins THIRD] [--series BANK_SERIES THIRD_SERIES [--series-rel 1e-6]]
 
 Two banks judged by the same oracle judge (`engine_run`'s records) that
 share seeds, and on each seed the same draw stream, pair seed by seed: the
@@ -31,7 +31,18 @@ hits a minority of seeds hard (a port 5% worse on 10 of 24 seeds passes
 it, `tests/test_torch_paired.py`): that is the shape of fault C2's
 residual, and of an acceptance or convergence bug that bites on some
 seeds only. It sits beside the unpaired gate of `chip_parity.py` and
-cannot replace it. Standard library only.
+cannot replace it.
+
+The same-function gate (`Paired.same_function_fault`) is stricter: the
+mean of d lies more than SIGMAS SE from zero OR the sign test gives
+p < SIGN_P. It holds the port to a bank of JAX's engine computing the
+port's own function off the TPU (`tests/jax_cpu_engine.py --branch xla
+--precision highest` against the port's fp32 engine on JAX's streams),
+where the two engines are meant to agree seed by seed: there a minority of
+seeds hit hard the same way is a fault, which the sign test sees. Its
+verdict (`Paired.verdict`, `--verdict`): "the port is JAX's engine" when
+at least AGREE_SHARE of the seeds agree and neither test faults; "port
+fault" when one does; "in between" otherwise. Standard library only.
 """
 
 from __future__ import annotations
@@ -49,6 +60,8 @@ PAIR_REL = 1e-3
 SIGMAS = 2.0
 #: ... and the sign test over the diverged seeds below this p
 SIGN_P = 0.05
+#: the same-function verdict "the port is JAX's engine" needs at least this share of the seeds agreeing
+AGREE_SHARE = 2 / 3
 
 
 def load(path: str) -> dict:
@@ -103,6 +116,25 @@ class Paired:
     def fault(self) -> bool:
         return abs(self.z) > SIGMAS and self.sign_p < SIGN_P
 
+    @property
+    def same_function_fault(self) -> bool:
+        """The gate for two engines of one function: either test faults."""
+        return abs(self.z) > SIGMAS or self.sign_p < SIGN_P
+
+    @property
+    def verdict(self) -> str:
+        """The same-function verdict: "the port is JAX's engine", "port
+        fault" or "in between"."""
+        if self.same_function_fault:
+            return "port fault"
+        return "the port is JAX's engine" if self.agree >= AGREE_SHARE * self.n else "in between"
+
+    def rule_text(self) -> str:
+        """The same-function gate and verdict as a line."""
+        return (f"same-function gate: {'FAULT' if self.same_function_fault else 'pass'}; verdict: "
+                f"{self.verdict} (needs >= {AGREE_SHARE:.3g} of the seeds within {PAIR_REL:g}, "
+                f"|mean| <= {SIGMAS:g} SE, sign-test p >= {SIGN_P:g})")
+
     def text(self, a: str = "port", b: str = "JAX") -> str:
         mb = self.mean_b
         median = "none diverged" if self.diverged == 0 else f"median relative difference {self.median_rel:+.2%}"
@@ -138,6 +170,14 @@ def paired(bank: dict, ref: dict, a: str = "port", b: str = "JAX") -> str:
     """`pair`'s line, or the count of common seeds when there are too few."""
     p = pair(bank, ref)
     return p.text(a, b) if p else f"paired: {len(set(bank) & set(ref))} common seeds"
+
+
+def bit_equal(bank: dict, ref: dict) -> str:
+    """On how many common seeds the two banks' (deltaE, mse) are equal bit
+    for bit, and the seeds that differ: a rerun against its committed bank."""
+    seeds = sorted(set(bank) & set(ref))
+    differ = [s for s in seeds if (bank[s]["deltaE"], bank[s]["mse"]) != (ref[s]["deltaE"], ref[s]["mse"])]
+    return f"bit-equal (deltaE, mse) on {len(seeds) - len(differ)} of {len(seeds)} common seeds; differ: {differ}"
 
 
 def basins(bank: dict, ref: dict, third: dict) -> list:
@@ -183,13 +223,21 @@ def main(argv=None) -> int:
     ap.add_argument("--series", nargs=2, default=None, metavar=("BANK_SERIES", "THIRD_SERIES"),
                     help="per-iteration best-error series of BANK and the third bank: where they part")
     ap.add_argument("--series-rel", type=float, default=1e-6, help="--series: the relative gap that parts")
+    ap.add_argument("--bitwise", action="store_true", help="add the seeds on which the banks are bit-equal")
+    ap.add_argument("--verdict", action="store_true",
+                    help="add the same-function verdict (BANK and REF compute one function)")
     ap.add_argument("--out", default="", help="also write the text here")
     args = ap.parse_args(argv)
     a, b = args.labels.split(",")
-    bank = load(args.bank)
-    text = paired(bank, load(args.ref), a, b)
+    bank, ref = load(args.bank), load(args.ref)
+    text = paired(bank, ref, a, b)
+    p = pair(bank, ref) if args.verdict else None
+    if p:
+        text += "\n" + p.rule_text()
+    if args.bitwise:
+        text += "\n" + bit_equal(bank, ref)
     if args.basins:
-        text += "\n" + basin_table(basins(bank, load(args.ref), load(args.basins)), a, b)
+        text += "\n" + basin_table(basins(bank, ref, load(args.basins)), a, b)
     if args.series:
         sa, sb = (load(path) for path in args.series)
         parts = {s: parting(sa[s]["best_error"], sb[s]["best_error"], args.series_rel)

@@ -29,6 +29,16 @@ Records carry `tools/engine_run.py`'s keys plus "engine": "jax-cpu" and
 seeds. On 8 CPU cores a config-1 natural seed (512^2, K=16, pop 4, imax
 1500) takes about 2.5 min on the xla branch and 19 min on the f32x3 branch.
 
+`--precision highest` on the xla branch is JAX's f32 function (a
+`Precision.HIGHEST` dot in the assignment, the conv at f32): the function
+the port's fp32 engine computes, so its bank pairs with the port's fp32
+bank on JAX's streams (`chip_parity.py`'s off-TPU gate). `--jobs N` runs N
+processes, each pinned to its share of the cores, with the seeds dealt
+round-robin, so the lowest seeds finish first; on 8 cores an imax-150
+anneal took 44 s a seed in one process and 22 s a seed in four of two
+cores, with bit-equal results. Every record and series line is appended
+in one write, so the processes share the two files.
+
 Like the tests, this script imports jax and the port; it is not collected
 by pytest.
 """
@@ -38,6 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -71,20 +82,59 @@ def parse_args(argv):
     ap.add_argument("--assignment-space", default="srgb", choices=["srgb", "lab"])
     ap.add_argument("--conv-precision", default="", choices=["", "highest", "f32x3", "bf16"])
     ap.add_argument("--series", default="", help="append each seed's per-iteration best error here")
+    ap.add_argument("--jobs", type=int, default=1, help="processes, each pinned to its share of the cores")
     ap.add_argument("--out", required=True)
     return ap.parse_args(argv)
+
+
+def append(path: str, rec: dict) -> None:
+    """`rec` as one JSON line at the end of `path`, in a single write (so
+    processes sharing the file never interleave), synced to disk."""
+    fd = os.open(path, os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
+    try:
+        line = (json.dumps(rec) + "\n").encode()
+        if os.write(fd, line) != len(line):
+            raise OSError(f"short write to {path}")
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def run_jobs(argv: list, todo: list, jobs: int) -> int:
+    """`todo` over `jobs` processes of this script, each pinned to its share
+    of this process's cores, the seeds dealt round-robin; the worst exit
+    code."""
+    cores = sorted(os.sched_getaffinity(0))
+    jobs = min(jobs, len(todo), len(cores))
+    procs = []
+    try:
+        for j in range(jobs):
+            share = set(cores[j * len(cores) // jobs:(j + 1) * len(cores) // jobs])
+            seeds = ",".join(str(s) for s in todo[j::jobs])
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), *argv, "--seeds", seeds, "--jobs", "1"],
+                preexec_fn=lambda share=share: os.sched_setaffinity(0, share)))
+        return max(p.wait() for p in procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                p.wait()
 
 
 def main(argv=None) -> int:
     from hybridquantization_tpu_torch.tools.engine_run import done_seeds, parse_seeds
     from hybridquantization_tpu_torch.tools.parity_check import content_image, judge_target, quality
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     done = done_seeds(args.out)
     todo = [s for s in parse_seeds(args.seeds) if s not in done]
     print(f"seeds todo {todo} (already done: {sorted(done)})", flush=True)
     if not todo:
         return 0
+    if args.jobs > 1:
+        return run_jobs(argv, todo, args.jobs)
     use_pallas, precision = BRANCHES[args.branch]
     precision = precision or args.precision
     img = content_image(args.content, args.size)
@@ -111,13 +161,9 @@ def main(argv=None) -> int:
             rec["compile_inclusive"] = True
         if args.series:
             best = np.asarray(info["telemetry"]["best_error"], np.float64)
-            with open(args.series, "a") as f:
-                f.write(json.dumps({"seed": s, "engine": "jax-cpu", "branch": args.branch,
-                                    "deltaE": de, "best_error": best.tolist()}) + "\n")
-        with open(args.out, "a") as f:
-            f.write(json.dumps(rec) + "\n")
-            f.flush()
-            os.fsync(f.fileno())
+            append(args.series, {"seed": s, "engine": "jax-cpu", "branch": args.branch,
+                                 "precision": precision, "deltaE": de, "best_error": best.tolist()})
+        append(args.out, rec)
         print(f"[jax-cpu {args.branch}] {rec}", flush=True)
     print("all requested seeds done", flush=True)
     return 0

@@ -1,7 +1,7 @@
 """Layer 2 (`fitness_parity`'s protocol) with the JAX engine's own f32x3
 fitness, evaluated on the CPU.
 
-    python tests/jax_cpu_layer2.py [--branch f32x3|xla] --content smooth --size 512 --colors 16 > LOG
+    python tests/jax_cpu_layer2.py [--branch f32x3|xla|highest] --content smooth --size 512 --colors 16 > LOG
 
 The fitness (`--branch f32x3`, the default) is the Pallas branch of
 `hybridquantization_tpu.pipeline.make_population_fitness` at
@@ -20,7 +20,10 @@ JAX's function in XLA (`jax.jit` of `make_population_fitness`): f32, but
 its assignment at the default "f32x3" scores with three bf16 hi/lo dots
 (`hybridquantization_tpu/ops/assign.py:_scores`); its
 flips are JAX's `ops.assign.nearest_palette` of member 0 against the
-oracle's.
+oracle's. `--branch highest` is that branch at `precision="highest"` (the
+fitness of `tests/jax_cpu_engine.py --branch xla --precision highest`): a
+`Precision.HIGHEST` dot in the assignment, so JAX's f32 function, the one
+the port's fp32 engine computes.
 
 Like the tests, this script imports jax and the port; it is not collected
 by pytest (a config-2 run takes minutes).
@@ -29,6 +32,7 @@ by pytest (a config-2 run takes minutes).
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import sys
 
@@ -73,11 +77,12 @@ def jax_fitness(img: np.ndarray, cfg, device):
     return evaluate
 
 
-def xla_fitness(img: np.ndarray, cfg, device):
-    """`fitness_parity`'s evaluator for JAX's default branch off the TPU:
-    (numpy (pop,) JAX f32 errors, (P,) int32 JAX index of member 0)."""
+def xla_fitness(img: np.ndarray, cfg, device, precision: str = "f32x3"):
+    """`fitness_parity`'s evaluator for JAX's default branch off the TPU at
+    `precision`: (numpy (pop,) JAX f32 errors, (P,) int32 JAX index of
+    member 0)."""
     sw = cfg.swasa
-    jcfg = JConfig(swasa=JSWASA(num_colors=sw.num_colors, population=sw.population))
+    jcfg = JConfig(swasa=JSWASA(num_colors=sw.num_colors, population=sw.population), precision=precision)
     jq = JQuantizer(jcfg)
     fit = jax.jit(j_pop_fitness(j_make_context(jnp.asarray(img), jq.filters, jcfg), jcfg, jq.filters.half_width))
     nearest = jax.jit(lambda x, p: assign_ops.nearest_palette(x, p, precision=jcfg.precision))
@@ -94,6 +99,8 @@ def xla_fitness(img: np.ndarray, cfg, device):
 BRANCHES = {
     "f32x3": ("the JAX engine's f32x3 Pallas branch in interpret mode on the CPU", jax_fitness),
     "xla": ("the JAX engine's default branch off the TPU (f32, XLA) on the CPU", xla_fitness),
+    "highest": ("the JAX engine's default branch off the TPU at precision highest (f32, XLA) on the CPU",
+                functools.partial(xla_fitness, precision="highest")),
 }
 
 
@@ -104,6 +111,8 @@ def main(argv=None) -> int:
     ap.add_argument("--branch", default="f32x3", choices=list(BRANCHES))
     args, rest = ap.parse_known_args(argv)
     title, evaluator = BRANCHES[args.branch]
+    if args.branch == "highest" and "--precision" not in rest:
+        rest += ["--precision", "highest"]  # so the log's summary line names it
     print(f"fitness: {title}", flush=True)
     return fitness_parity.main(rest, device="cpu", evaluator=evaluator)
 

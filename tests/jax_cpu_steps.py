@@ -2,13 +2,14 @@
 decision that differs.
 
     python tests/jax_cpu_steps.py --content natural --size 512 --colors 16 --seed 0 \\
-        [--imax 1500] [--until 1500] [--series JAX_SERIES.jsonl]
+        [--imax 1500] [--until 1500] [--series JAX_SERIES.jsonl] [--precision f32x3|highest]
 
 Both engines start from the same palettes and take the same draws: JAX's
 `find_palette` stream for `PRNGKey(seed)` (JAX from `jax.random`, the port
 from `tools.jax_draws`, checked equal every iteration). JAX steps with its
 own `swasa.loop.make_step` over its default fitness off the TPU (f32 in
-XLA, the `tests/jax_cpu_engine.py --branch xla` anneal), the port with its
+XLA, the `tests/jax_cpu_engine.py --branch xla` anneal; `--precision
+highest` for its `--precision highest` anneal), the port with its
 `swasa.loop.make_step` over its fitness on the CPU (the kernels' plain
 versions). Each follows its own decisions. Every iteration the decisions
 of `make_step` are recomputed from the proposals' errors and the draws:
@@ -88,10 +89,12 @@ def main(argv=None) -> int:
     ap.add_argument("--imax", type=int, default=1500)
     ap.add_argument("--until", type=int, default=0, help="the last iteration to step (default imax)")
     ap.add_argument("--series", default="", help="jax_cpu_engine.py --series file to hold JAX's steps to")
+    ap.add_argument("--precision", default="f32x3", choices=["f32x3", "highest"],
+                    help="JAX's precision field (highest: its f32 function, the port's)")
     args = ap.parse_args(argv)
     K, pop = args.colors, 4
     img = content_image(args.content, args.size)
-    jcfg = JConfig(swasa=JSWASA(num_colors=K, population=pop, imax=args.imax))
+    jcfg = JConfig(swasa=JSWASA(num_colors=K, population=pop, imax=args.imax), precision=args.precision)
     sw = jcfg.swasa
     jq = JQuantizer(jcfg)
     jfit = j_pop_fitness(j_make_context(jnp.asarray(img), jq.filters, jcfg), jcfg, jq.filters.half_width)

@@ -2,6 +2,7 @@
 size: its draw sources, the split fitness, and its per-iteration counts."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -236,3 +237,42 @@ def test_chip_parity_highest_row_reads_config1_banks():
     assert chip_parity.card_bank("out", highest) == chip_parity.card_bank("out", chip_parity.CONFIG1)
     assert (highest.paired, highest.oracle, highest.jax) == (
         chip_parity.CONFIG1.paired, None, "engine_config1_highest_r04.jsonl")
+
+
+@pytest.mark.parametrize("name, scale, fault", [
+    ("equal", lambda s: 1.0, False),
+    # the port 5% worse on 10 of 24 seeds, 0.5% better on 14 (test_torch_paired.py's tails): the
+    # TPU-paired gate passes it, the off-TPU gate does not
+    ("tails", lambda s: 1 / 1.05 if s < 10 else 1 / 0.995, True),
+    # half the seeds 2% up, half 2% down: no offset, no sign
+    ("chaos", lambda s: 1.02 if s % 2 else 0.98, False),
+])
+def test_chip_parity_reports_the_off_tpu_pairing(tmp_path, name, scale, fault):
+    """`reports` on the committed config-1 natural banks with a made-up
+    off-TPU JAX bank (seeds 0-23): the third pairing is written, a `jax-cpu`
+    fault comes exactly when the same-function gate fails, and the
+    unpaired gate's fault and JAX_GAP stay as they were."""
+    import shutil
+
+    import chip_parity
+    from hybridquantization_tpu_torch.tools import paired
+
+    (row,) = chip_parity.select("config1nat")
+    assert row.jax_cpu == os.path.join("c2", "jaxcpu_config1nat_highest.jsonl") and chip_parity.JAX_GAP == 0.01
+    out = tmp_path / "out"
+    (out / "c2").mkdir(parents=True)
+    shutil.copy(os.path.join(chip_parity.EVIDENCE_H100, "engine_config1nat.jsonl"), out)
+    shutil.copy(os.path.join(chip_parity.EVIDENCE_H100, row.paired), out / "c2")
+    stream = _records(out / row.paired)
+    stub = tmp_path / "jaxcpu.jsonl"
+    stub.write_text("".join(json.dumps({**stream[s], "deltaE": stream[s]["deltaE"] * scale(s)}) + "\n"
+                            for s in range(24)))
+    faults = chip_parity.reports(str(out), (row._replace(jax_cpu=str(stub)),))
+    assert faults[0] == "config1nat: Delta-E gap to the JAX engine +2.31% ± 0.91%"
+    assert not any(f.startswith("config1nat paired") for f in faults)
+    text = (out / "paired_config1nat_vs_jaxcpu.txt").read_text()
+    assert text.startswith(f"{row.paired} against {stub}: paired over 24 seeds: port ")
+    p = paired.pair(stream, _records(stub))
+    assert p.same_function_fault is fault and not p.fault
+    assert any(f.startswith("config1nat jax-cpu: ") for f in faults) is fault
+    assert ("verdict: port fault" in text) is fault

@@ -139,3 +139,85 @@ def test_xla_fitness_is_the_jax_xla_branch_fitness():
         np.testing.assert_allclose(got, want, rtol=XLA_RTOL, atol=0)
         far = max(far, float(np.max(np.abs(fp32(torch.from_numpy(pals))[0].numpy() - want) / want)))
     assert far > 3 * XLA_RTOL
+
+
+#: JAX's branch at precision "highest" against the port's fp32 fitness, relative: both f32, summed in
+#: different orders (2.1e-7 median, 1.7e-6 most over 32 palettes at 512^2 natural, K=16)
+HIGHEST_RTOL = 1e-6
+
+
+def test_highest_is_the_port_fp32_function():
+    """JAX's default branch at precision "highest" (`tests/jax_cpu_engine.py
+    --branch xla --precision highest`) and the port's fp32 fitness agree
+    within HIGHEST_RTOL at 64^2 natural, K=8, 4 palettes; their indices
+    differ only inside the near-tie class."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from hybridquantization_tpu import HybridQuantizer as JQuantizer
+    from hybridquantization_tpu import QuantizationConfig as JConfig
+    from hybridquantization_tpu import SWASAConfig as JSWASA
+    from hybridquantization_tpu.ops import assign as jassign
+    from hybridquantization_tpu.pipeline import _make_context as j_make_context
+    from hybridquantization_tpu.pipeline import make_population_fitness as j_pop_fitness
+    from hybridquantization_tpu_torch import QuantizationConfig, SWASAConfig
+    from hybridquantization_tpu_torch.ops.assign import nearest_palette
+    from hybridquantization_tpu_torch.pipeline import _make_context, make_population_fitness
+    from hybridquantization_tpu_torch.scielab.filters import build_filters
+    from hybridquantization_tpu_torch.tools.parity_check import content_image
+    from tests.jax_cpu_xla_scores import beyond_ties
+
+    img = content_image("natural", 64)
+    jcfg = JConfig(swasa=JSWASA(num_colors=8, population=4), precision="highest")
+    jq = JQuantizer(jcfg)
+    jfit = j_pop_fitness(j_make_context(jnp.asarray(img), jq.filters, jcfg), jcfg, jq.filters.half_width)
+    cfg = QuantizationConfig(swasa=SWASAConfig(num_colors=8, population=4))
+    ctx = _make_context(img, build_filters(), cfg, "cpu")
+    pals = np.random.default_rng(11).random((4, 8, 3), dtype=np.float32)
+    want = np.asarray(jax.jit(jfit)(pals)[0], np.float64)
+    got = make_population_fitness(ctx, cfg)(torch.from_numpy(pals))[0].numpy().astype(np.float64)
+    np.testing.assert_allclose(got, want, rtol=HIGHEST_RTOL, atol=0)
+    pixels = img.reshape(-1, 3)
+    jidx = jax.jit(lambda x, p: jassign.nearest_palette(x, p, precision="highest"))
+    for pal in pals:
+        j = np.asarray(jidx(pixels, pal))
+        p = nearest_palette(ctx["assign_pixels"], torch.from_numpy(pal)).numpy()
+        assert beyond_ties(pixels.astype(np.float64), pal.astype(np.float64), j, p) == 0
+
+
+def test_highest_precision_is_banked(tmp_path):
+    out, series = tmp_path / "highest.jsonl", tmp_path / "series.jsonl"
+    assert jax_cpu_engine.main([*FLAGS, "--seeds", "0", "--branch", "xla", "--precision", "highest",
+                                "--out", str(out), "--series", str(series)]) == 0
+    (rec,), (line,) = _records(out), _records(series)
+    assert (rec["engine"], rec["branch"], rec["precision"]) == ("jax-cpu", "xla", "highest")
+    assert KEYS <= set(rec) and np.isfinite(rec["deltaE"])
+    assert (line["precision"], line["deltaE"], len(line["best_error"])) == ("highest", rec["deltaE"], IMAX)
+
+
+def test_jobs_deal_the_seeds_round_robin_over_core_shares(monkeypatch):
+    """`--jobs 4` on 8 cores: four processes of the script, two cores each,
+    seeds dealt round-robin so the lowest finish first."""
+    started = []
+
+    class Proc:
+        def __init__(self, cmd, preexec_fn):
+            calls = []
+            monkeypatch.setattr(jax_cpu_engine.os, "sched_setaffinity", lambda pid, cores: calls.append(cores))
+            preexec_fn()
+            started.append((cmd, calls[0]))
+
+        def wait(self):
+            return 0
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(jax_cpu_engine.os, "sched_getaffinity", lambda pid: set(range(8)))
+    monkeypatch.setattr(jax_cpu_engine.subprocess, "Popen", Proc)
+    argv = [*FLAGS, "--branch", "xla", "--out", "bank.jsonl"]
+    assert jax_cpu_engine.run_jobs(argv, [0, 1, 2, 3, 4, 5], 4) == 0
+    assert [cores for _, cores in started] == [{0, 1}, {2, 3}, {4, 5}, {6, 7}]
+    assert [cmd[-4:] for cmd, _ in started] == [["--seeds", s, "--jobs", "1"] for s in ("0,4", "1,5", "2", "3")]
+    assert all(cmd[2:-4] == argv for cmd, _ in started)
