@@ -22,6 +22,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -52,6 +54,28 @@ def done_seeds(path: str) -> set:
                 except (ValueError, KeyError):
                     pass
     return done
+
+
+def run_jobs(script: str, argv: list, seeds: list, jobs: int, pin: bool = False) -> int:
+    """`seeds` over `jobs` processes of `script` (each given `argv`, its
+    share of the seeds dealt round-robin so the lowest finish first, and
+    `--jobs 1`); with `pin`, each process pinned to its share of this
+    process's cores. The worst exit code."""
+    cores = sorted(os.sched_getaffinity(0))
+    jobs = min(jobs, len(seeds), len(cores) if pin else jobs)
+    procs = []
+    try:
+        for j in range(jobs):
+            share = set(cores[j * len(cores) // jobs:(j + 1) * len(cores) // jobs])
+            procs.append(subprocess.Popen(
+                [sys.executable, script, *argv, "--seeds", ",".join(map(str, seeds[j::jobs])), "--jobs", "1"],
+                preexec_fn=(lambda share=share: os.sched_setaffinity(0, share)) if pin else None))
+        return max(p.wait() for p in procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                p.wait()
 
 
 def parse_args(argv):

@@ -17,11 +17,12 @@ On the common seeds, with d = BANK - REF per seed:
     seeds: how many of them BANK ends higher on, the two-sided exact sign
     test over them, and their median relative difference d / REF.
 
-`--basins THIRD` adds, for each seed on which BANK diverged from REF,
-where a third bank lands (`basins`): with BANK, with REF or neither, as
-fault C2's verdict rule reads JAX's engine off the TPU against the port
-and the TPU. `--series` adds the first iteration at which the two banks'
-per-iteration best errors part by more than `--series-rel` (`parting`).
+REF may name several files: their seeds are pooled. `--basins THIRD`
+adds, for each seed on which BANK diverged from REF, where a third bank
+lands (`basins`): with BANK, with REF or neither, as fault C2's verdict
+rule reads JAX's engine off the TPU against the port and the TPU.
+`--series` adds the first iteration at which the two banks' per-iteration
+best errors part by more than `--series-rel` (`parting`).
 
 The gate (`Paired.fault`): the mean of d lies more than SIGMAS SE from
 zero AND the sign test over the diverged seeds gives p < SIGN_P. An offset
@@ -217,7 +218,7 @@ def parting(a, b, rel: float = 1e-6):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("bank")
-    ap.add_argument("ref")
+    ap.add_argument("ref", nargs="+", help="one bank, or several whose seeds are pooled")
     ap.add_argument("--labels", default="port,JAX", help="the two banks' names in the line")
     ap.add_argument("--basins", default="", help="a third bank: where it lands on BANK's diverged seeds")
     ap.add_argument("--series", nargs=2, default=None, metavar=("BANK_SERIES", "THIRD_SERIES"),
@@ -229,7 +230,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="", help="also write the text here")
     args = ap.parse_args(argv)
     a, b = args.labels.split(",")
-    bank, ref = load(args.bank), load(args.ref)
+    missing = [p for p in [args.bank, *args.ref] if not os.path.exists(p)]
+    if missing:
+        ap.error(f"no bank {missing}")
+    bank, ref = load(args.bank), {s: r for path in args.ref for s, r in load(path).items()}
     text = paired(bank, ref, a, b)
     p = pair(bank, ref) if args.verdict else None
     if p:

@@ -48,7 +48,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -100,30 +99,8 @@ def append(path: str, rec: dict) -> None:
         os.close(fd)
 
 
-def run_jobs(argv: list, todo: list, jobs: int) -> int:
-    """`todo` over `jobs` processes of this script, each pinned to its share
-    of this process's cores, the seeds dealt round-robin; the worst exit
-    code."""
-    cores = sorted(os.sched_getaffinity(0))
-    jobs = min(jobs, len(todo), len(cores))
-    procs = []
-    try:
-        for j in range(jobs):
-            share = set(cores[j * len(cores) // jobs:(j + 1) * len(cores) // jobs])
-            seeds = ",".join(str(s) for s in todo[j::jobs])
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), *argv, "--seeds", seeds, "--jobs", "1"],
-                preexec_fn=lambda share=share: os.sched_setaffinity(0, share)))
-        return max(p.wait() for p in procs)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.terminate()
-                p.wait()
-
-
 def main(argv=None) -> int:
-    from hybridquantization_tpu_torch.tools.engine_run import done_seeds, parse_seeds
+    from hybridquantization_tpu_torch.tools.engine_run import done_seeds, parse_seeds, run_jobs
     from hybridquantization_tpu_torch.tools.parity_check import content_image, judge_target, quality
 
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -134,7 +111,7 @@ def main(argv=None) -> int:
     if not todo:
         return 0
     if args.jobs > 1:
-        return run_jobs(argv, todo, args.jobs)
+        return run_jobs(os.path.abspath(__file__), argv, todo, args.jobs, pin=True)
     use_pallas, precision = BRANCHES[args.branch]
     precision = precision or args.precision
     img = content_image(args.content, args.size)
@@ -145,6 +122,8 @@ def main(argv=None) -> int:
         assignment_space=args.assignment_space, use_pallas=use_pallas,
     ))
     for i, s in enumerate(todo):
+        if s in done_seeds(args.out):  # banked meanwhile by another process on the same file
+            continue
         t0 = time.time()
         pal, info = engine.find_palette(img, key=jax.random.PRNGKey(s), chunk_size=args.imax)
         palette = np.asarray(pal, np.float64)

@@ -276,3 +276,20 @@ def test_chip_parity_reports_the_off_tpu_pairing(tmp_path, name, scale, fault):
     assert p.same_function_fault is fault and not p.fault
     assert any(f.startswith("config1nat jax-cpu: ") for f in faults) is fault
     assert ("verdict: port fault" in text) is fault
+
+
+def test_chip_parity_off_tpu_gate_reads_the_0_47_bank_at_unchanged_thresholds():
+    """The config-1 natural row's off-TPU gate reads JAX's bank of seeds
+    0-47 (fault C3's first read set), not the fresh 48-95 bank beside it,
+    and the three gates' thresholds are those the verdicts were read by."""
+    import chip_parity
+    from hybridquantization_tpu_torch.tools import paired
+
+    (row,) = chip_parity.select("config1nat")
+    assert row.jax_cpu == os.path.join("c2", "jaxcpu_config1nat_highest.jsonl")
+    path = os.path.join(chip_parity.EVIDENCE_H100, row.jax_cpu)
+    assert sorted(_records(path)) == list(range(48))
+    assert [r.name for r in chip_parity.LAYER3 if r.jax_cpu] == ["config1nat"]
+    assert chip_parity.JAX_GAP == 0.01  # the unpaired gate
+    assert (paired.SIGMAS, paired.SIGN_P) == (2.0, 0.05)  # the paired and the same-function gates
+    assert (paired.PAIR_REL, paired.AGREE_SHARE) == (1e-3, 2 / 3)  # the same-function verdict

@@ -150,11 +150,12 @@ def test_import_loads_no_jax():
         "import hybridquantization_tpu_torch.tools.oracle_run\n"
         "import hybridquantization_tpu_torch.tools.tpu_f32x3\n"
         "import hybridquantization_tpu_torch.tools.jax_draws\n"
+        "import hybridquantization_tpu_torch.tools.paired, hybridquantization_tpu_torch.tools.steps\n"
         "import hybridquantization_tpu_torch.parallel.mesh, hybridquantization_tpu_torch.parallel.multihost\n"
         "import hybridquantization_tpu_torch.parallel.population, hybridquantization_tpu_torch.parallel.halo\n"
         "import hybridquantization_tpu_torch.parallel.sharded, hybridquantization_tpu_torch.parallel.fast\n"
         "import tests._torch_mesh_worker\n"
-        "import chip_smoke, chip_profile, chip_mesh, chip_parity, chip_draws, chip_c2\n"
+        "import chip_smoke, chip_profile, chip_mesh, chip_parity, chip_draws, chip_c2, chip_steps\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('hybridquantization_tpu.') or m == 'hybridquantization_tpu')\n"
         "assert not bad, bad\n"

@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from tests import jax_cpu_engine
 
@@ -196,17 +197,20 @@ def test_highest_precision_is_banked(tmp_path):
     assert (line["precision"], line["deltaE"], len(line["best_error"])) == ("highest", rec["deltaE"], IMAX)
 
 
-def test_jobs_deal_the_seeds_round_robin_over_core_shares(monkeypatch):
-    """`--jobs 4` on 8 cores: four processes of the script, two cores each,
-    seeds dealt round-robin so the lowest finish first."""
+def _start_jobs(monkeypatch, script, argv, seeds, jobs, pin):
+    """`engine_run.run_jobs` with Popen and the cores faked (8 of them):
+    each started (command, cores it was pinned to or None)."""
+    from hybridquantization_tpu_torch.tools import engine_run
+
     started = []
 
     class Proc:
         def __init__(self, cmd, preexec_fn):
             calls = []
-            monkeypatch.setattr(jax_cpu_engine.os, "sched_setaffinity", lambda pid, cores: calls.append(cores))
-            preexec_fn()
-            started.append((cmd, calls[0]))
+            monkeypatch.setattr(engine_run.os, "sched_setaffinity", lambda pid, cores: calls.append(cores))
+            if preexec_fn is not None:
+                preexec_fn()
+            started.append((cmd, calls[0] if calls else None))
 
         def wait(self):
             return 0
@@ -214,10 +218,82 @@ def test_jobs_deal_the_seeds_round_robin_over_core_shares(monkeypatch):
         def poll(self):
             return 0
 
-    monkeypatch.setattr(jax_cpu_engine.os, "sched_getaffinity", lambda pid: set(range(8)))
-    monkeypatch.setattr(jax_cpu_engine.subprocess, "Popen", Proc)
+    monkeypatch.setattr(engine_run.os, "sched_getaffinity", lambda pid: set(range(8)))
+    monkeypatch.setattr(engine_run.subprocess, "Popen", Proc)
+    assert engine_run.run_jobs(script, argv, seeds, jobs, pin=pin) == 0
+    assert all(cmd[1:2] == [script] and cmd[2:-4] == argv for cmd, _ in started)
+    return started
+
+
+def test_jobs_deal_the_seeds_round_robin_over_core_shares(monkeypatch):
+    """`--jobs 4` on 8 cores: four processes of the script, two cores each,
+    seeds dealt round-robin so the lowest finish first."""
     argv = [*FLAGS, "--branch", "xla", "--out", "bank.jsonl"]
-    assert jax_cpu_engine.run_jobs(argv, [0, 1, 2, 3, 4, 5], 4) == 0
+    started = _start_jobs(monkeypatch, jax_cpu_engine.__file__, argv, [0, 1, 2, 3, 4, 5], 4, pin=True)
     assert [cores for _, cores in started] == [{0, 1}, {2, 3}, {4, 5}, {6, 7}]
     assert [cmd[-4:] for cmd, _ in started] == [["--seeds", s, "--jobs", "1"] for s in ("0,4", "1,5", "2", "3")]
-    assert all(cmd[2:-4] == argv for cmd, _ in started)
+
+
+def test_unpinned_jobs_deal_the_seeds_without_core_shares(monkeypatch):
+    """`chip_steps.py --jobs 5`: five processes pinned nowhere (one
+    intra-op thread each), one seed each, however few the cores."""
+    started = _start_jobs(monkeypatch, "chip_steps.py", ["--to-end"], [25, 30, 35, 2, 13, 48], 5, pin=False)
+    assert [cores for _, cores in started] == [None] * 5
+    assert [cmd[-3] for cmd, _ in started] == ["25,48", "30", "35", "2", "13"]
+
+
+C2 = os.path.join(REPO, "docs", "evidence_h100", "c2")
+#: fault C3's fresh read set: JAX's f32 engine off the TPU on seeds 48-95, fixed before any of them ran
+FRESH = os.path.join(C2, "jaxcpu_config1nat_highest_48-95.jsonl")
+FRESH_SERIES = os.path.join(C2, "jaxcpu_config1nat_highest_48-95_series.jsonl")
+
+
+def test_the_fresh_off_tpu_bank_is_jax_highest_on_seeds_48_to_95():
+    recs = _records(FRESH)
+    seeds = [r["seed"] for r in recs]
+    assert sorted(seeds) == list(range(48, 96)) and len(set(seeds)) == len(seeds)
+    assert {(r["engine"], r["branch"], r["precision"]) for r in recs} == {("jax-cpu", "xla", "highest")}
+    assert {(r["content"], r["size"], r["colors"], r["imax"], r["population"]) for r in recs} == {
+        ("natural", 512, 16, 1500, 4)}
+    assert all(KEYS <= set(r) for r in recs)
+    first = {r["seed"] for r in _records(os.path.join(C2, "jaxcpu_config1nat_highest.jsonl"))}
+    assert first == set(range(48)) and not first & set(seeds)
+    series = {r["seed"]: r for r in _records(FRESH_SERIES)}
+    assert sorted(series) == list(range(48, 96))
+    assert all(series[r["seed"]]["deltaE"] == r["deltaE"] and len(series[r["seed"]]["best_error"]) == 1500
+               for r in recs)
+
+
+def test_the_fresh_bank_reproduces_its_committed_verdict(tmp_path):
+    """`tools/paired.py --verdict` on P (the port's fp32 engine on JAX's
+    streams) and the fresh bank writes the committed verdict file."""
+    from hybridquantization_tpu_torch.tools import paired
+
+    out = tmp_path / "verdict.txt"
+    assert paired.main([os.path.join(C2, "draws_config1nat_fp32_jax.jsonl"), FRESH,
+                        "--labels", "port fp32,JAX highest off the TPU", "--verdict",
+                        "--series", os.path.join(C2, "series_config1nat_fp32_jax_24-95.jsonl"), FRESH_SERIES,
+                        "--series-rel", "1e-4", "--out", str(out)]) == 0
+    want = open(os.path.join(C2, "paired_config1nat_fp32_jax_vs_jaxcpu_highest_48-95.txt")).read()
+    assert out.read_text() == want
+    assert want.startswith("paired over 48 seeds: port fp32 ")
+
+
+def test_the_pooled_0_95_reading_reproduces_its_committed_file(tmp_path):
+    """The reading beside the verdict: P against both J banks, their seeds
+    pooled (REF named twice), over seeds 0-95."""
+    from hybridquantization_tpu_torch.tools import paired
+
+    out = tmp_path / "pooled.txt"
+    assert paired.main([os.path.join(C2, "draws_config1nat_fp32_jax.jsonl"),
+                        os.path.join(C2, "jaxcpu_config1nat_highest.jsonl"), FRESH,
+                        "--labels", "port fp32,JAX highest off the TPU", "--verdict", "--out", str(out)]) == 0
+    want = open(os.path.join(C2, "paired_config1nat_fp32_jax_vs_jaxcpu_highest_0-95.txt")).read()
+    assert out.read_text() == want and want.startswith("paired over 96 seeds: ")
+
+
+def test_a_missing_bank_file_is_an_error(tmp_path):
+    from hybridquantization_tpu_torch.tools import paired
+
+    with pytest.raises(SystemExit):
+        paired.main([os.path.join(C2, "draws_config1nat_fp32_jax.jsonl"), FRESH, str(tmp_path / "typo.jsonl")])
