@@ -12,10 +12,12 @@ one JSON line of milliseconds a call (CUDA events after warm-up) on random
 inputs from seed 0, K=256:
 
   b1_first_f32_4k, b1_average_bf16_4k   B1 at 3840x2160, population 4
-  b2_f32_4k, b2_split_4k                B2 at 3840x2160, population 4, the
-                                        default 21 taps, in the fp32 mode and
-                                        in the split mode (the TPU's f32x3;
+  b2_f32_4k, b2_bf16_4k, b2_split_4k    B2 at 3840x2160, population 4, the
+                                        default 21 taps, in the fp32, bf16 and
+                                        split modes (split: the TPU's f32x3;
                                         null where the checkout has none)
+  b2_split_512                          B2's split mode at 512x512, population
+                                        4 (config-1's shape)
   b3_index_4k                           B3's nearest index, one palette
   lloyd_step_4k                         one Lloyd step, ops.assign.lloyd_step
   seeding_step_bucket_64x32768          one k-means Lloyd step of a bucket:
@@ -104,7 +106,8 @@ def probes(torch, dev) -> dict:
 
 
 def b2(torch, dev, g) -> dict:
-    """Milliseconds a call of B2 at 4K/pop4 on random opponent images."""
+    """Milliseconds a call of B2 at 4K/pop4 (and split mode at 512x512/pop4)
+    on random opponent images."""
     from hybridquantization_tpu_torch import colorspace as cs
     from hybridquantization_tpu_torch.ops import fused_fitness as ff
     from hybridquantization_tpu_torch.scielab.filters import build_filters
@@ -116,10 +119,14 @@ def b2(torch, dev, g) -> dict:
     f = build_filters()
     kh, kv = stacked_kernels(f, False, dev), stacked_kernels(f, True, dev)
     args = (q, target, kh, kv, cs.WHITEPOINT_D65, "CIE76")
+    small = (q[..., :512, :512].contiguous(), target[..., :512, :512].contiguous(), *args[2:])
     host = {"taps_on_host": ff.kernel_taps(kh, kv)}
     split = "split" in getattr(ff, "CONV_PRECISIONS", ())
     return {"b2_f32_4k": ms(lambda: ff.fused_scielab_err_sums(*args, **host), 20),
+            "b2_bf16_4k": ms(lambda: ff.fused_scielab_err_sums(*args, precision="bf16", **host), 20),
             "b2_split_4k": ms(lambda: ff.fused_scielab_err_sums(*args, precision="split", **host), 20)
+            if split else None,
+            "b2_split_512": ms(lambda: ff.fused_scielab_err_sums(*small, precision="split", **host), 50)
             if split else None}
 
 

@@ -16,8 +16,10 @@ sRGB and LAB and the 1024x768 frame), and B1's and B2's fast variants
 LAB, B2 at 29, 45, 69 and 93 taps through both of its paths (the fused
 kernel with any filter, and the two-pass one) and at 123 taps (above the
 fused kernel's limit) through the two-pass path on the 1024x768 frame,
-B2's split mode (the TPU kernel's f32x3) at 4K/pop4, each split check with
-the fp32 mode's sums at least TEETH limits away, prints B2's peak device memory per
+B2's split mode (the TPU kernel's f32x3, on the tensor cores:
+`csrc/band_fitness.cu`) at 4K/pop4 and on a bucket and column shards of
+crops of it, each on B1's winners, the whole frame's with the fp32 mode's
+sums at least TEETH limits away, prints B2's peak device memory per
 launch (4K/pop4, each batch bucket),
 checks the annealing slice and the exact Lloyd polish against the plain
 path on small inputs, then drives seven paths at full width, each with the
@@ -30,7 +32,8 @@ launch counts set to 0 just before it and read just after:
   tpu_f32x3         fault C2's emulation of the TPU's whole f32x3 fitness
                     (`tools.tpu_f32x3` with conv "split": split_assign, then
                     B2 in its split mode) at config-1 natural, one batch of
-                    4 palettes: every B2 launch in split mode, the fitness
+                    4 palettes: every B2 launch in split mode on the
+                    tensor-core kernel, the fitness
                     against its plain version, split_assign and B2's split
                     mode each against their own, flips against B1;
   e2e               random init, imax=30: `HybridQuantizer(...).run` and
@@ -105,8 +108,9 @@ name and power limit and a JSON object with one entry per kernel (B1, B2,
 B3's index mode and its Lloyd-step mode at top level: their numbers at the
 batch's largest bucket and their launches there; the probe kernels: their
 first variant and the probe paths' launches; B2's split mode as
-`fused_fitness_f32x3`: its numbers at config-1, launches from the
-tpu_f32x3 path); the last line
+`fused_fitness_f32x3`, source `csrc/band_fitness.cu`: its numbers at
+config-1, launches of the tensor-core kernel from the tpu_f32x3 path); the
+last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 so does a machine without a CUDA device.
 
@@ -151,7 +155,8 @@ HIST_POLISH_PIXELS = 1 << 20  # polish_palette's "auto": the histogram from this
 LLOYD_RUN = SEED_STEPS + POLISH  # B3 Lloyd-step launches of a seeded, polished run (an image or a bucket)
 # the probe kernels (T1-T8) and B2's split mode (the TPU's f32x3, reached only
 # from fault C2's emulation): the engine paths launch none of them
-OFF_ENGINE = {"probe_kloop": 0, "split_rowmax": 0, "split_assign": 0, "fused_fitness_split": 0}
+OFF_ENGINE = {"probe_kloop": 0, "split_rowmax": 0, "split_assign": 0, "fused_fitness_split": 0,
+              "fused_fitness_band": 0}
 # phase_parity: the port's layer-2 parity tool at config-1, 2 palette batches
 PARITY_ARGS = ["--content", "smooth", "--size", "512", "--colors", "16", "--palettes", "2",
                "--population", "4", "--tolerance", "1e-3"]
@@ -161,10 +166,13 @@ PARITY_ARGS = ["--content", "smooth", "--size", "512", "--colors", "16", "--pale
 SPLIT_RTOL = 1e-6
 # B2's split mode, and the emulated f32x3 fitness (split_assign, then B2 in
 # split mode), kernel against plain on the same card operands, relative:
-# 2.5e-7 measured at 4K/pop4, 1.5e-7 (B2) and 1.0e-7 (the fitness) at
-# config-1 (NVIDIA H100 80GB HBM3, 700 W). Each such check also holds the
-# fp32 mode's sums at least TEETH limits from the plain split's (2.7e-6 at
-# 4K, 3.9e-6 and 2.7e-6 at config-1), or fails as unable to tell them apart
+# on the tensor-core kernel 1.9e-7 measured at 4K/pop4 and 5.9e-7 on its
+# crops (NVIDIA H100 80GB HBM3, 700 W; the kernel's sums are the exact
+# products' near the exactly rounded sum, the plain split's are summed in
+# tap order, and on some crops of quantized images the two orders part by
+# more than this: chip_band.py, PERF.md §6). Each such check also holds the fp32 mode's sums at least
+# TEETH limits from the plain split's (2.7e-6 at 4K, 4.0e-6 and 2.7e-6 at
+# config-1), or fails as unable to tell them apart
 B2_SPLIT_RTOL = 8e-7
 TEETH = 3
 # bf16 row maxima that may round the other way from plain (1e-5 measured at 4K;
@@ -225,10 +233,11 @@ def b2_bound(H: int, W: int, taps: int, pop: int, bf16: bool = False, images: in
     """B2: 7 filters x taps multiply-adds per pass, two passes, per member
     pixel, three of them in split mode (hi.hi + hi.lo + lo.hi; the LAB and
     Delta-E tail is left out, under a tenth of it); opponent images and
-    targets in, sums out."""
+    targets in, sums out. Split mode's products are of two bf16 values added
+    in f32, so they count at the bf16 tensor-core rate."""
     members = images * pop
     return bound((3 if split else 1) * 2.0 * 2 * 7 * taps * members * H * W,
-                 4.0 * (3 * members * H * W + 3 * images * H * W + 14 * taps + members), bf16)
+                 4.0 * (3 * members * H * W + 3 * images * H * W + 14 * taps + members), bf16 or split)
 
 
 def b3_bound(F: int, M: int, P: int, K: int) -> dict:
@@ -368,9 +377,12 @@ def _hold_split(what: str, got, want, fp32) -> tuple[float, float]:
 
 def phase_b2_split(img, opp, dev) -> dict:
     """B2's split mode (precision "split", the TPU kernel's f32x3) at 4K/pop4
-    on B1's winners `opp`: twice bit-equal, against its plain version by
-    `_hold_split`, timed beside the fp32 mode. Its other paths (29 and 123
-    taps, the slabs, the image axis) are held in tests/test_torch_cuda.py."""
+    on B1's winners `opp`, on the tensor-core kernel (csrc/band_fitness.cu;
+    its launches counted apart): twice bit-equal, against its plain version
+    by `_hold_split`, timed beside the fp32 mode; then a bucket and column
+    shards of 512 x 768 crops (`_split_bucket_and_shards`). Its other
+    filters (9 to 97 taps, and 123 on the two-pass path) and shapes are held
+    in tests/test_torch_cuda.py."""
     from hybridquantization_tpu_torch import QuantizationConfig
     from hybridquantization_tpu_torch import colorspace as cs
     from hybridquantization_tpu_torch.ops import fused_fitness as ff
@@ -382,12 +394,13 @@ def phase_b2_split(img, opp, dev) -> dict:
     taps = ctx["kh"].shape[1]
     args = (opp.reshape(pop, 3, h, w), ctx["target_planar"], ctx["kh"], ctx["kv"], cs.WHITEPOINT_D65, "CIE76")
     host = {"taps_on_host": ctx["taps_on_host"]}
-    before = ff.fused_scielab_err_sums.split_launches
+    before = (ff.fused_scielab_err_sums.split_launches, ff.fused_scielab_err_sums.band_launches)
     got = ff.fused_scielab_err_sums(*args, precision="split", **host)
     again = ff.fused_scielab_err_sums(*args, precision="split", **host)
     torch.cuda.synchronize()
-    if ff.fused_scielab_err_sums.split_launches - before != 2:
-        fail(f"B2 split: {ff.fused_scielab_err_sums.split_launches - before} split-mode launches of 2")
+    counted = (ff.fused_scielab_err_sums.split_launches - before[0], ff.fused_scielab_err_sums.band_launches - before[1])
+    if counted != (2, 2):
+        fail(f"B2 split: {counted} split-mode and tensor-core launches, not (2, 2)")
     if not torch.equal(got, again):
         fail(f"B2 split sums differ between two identical launches: {got.tolist()}, {again.tolist()}")
     want, plain_s = _timed(lambda: ff.fused_scielab_err_sums_reference(*args, precision="split"))
@@ -401,7 +414,57 @@ def phase_b2_split(img, opp, dev) -> dict:
           f"bit-equal twice; the fp32 mode {far:.3g} from plain split (>= {TEETH} x {B2_SPLIT_RTOL}); "
           f"kernel {ms:.3f} ms (fp32 mode {fp32_ms:.3f} ms), plain {plain_s * 1e3:.3f} ms, bound "
           f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+    row.update(_split_bucket_and_shards(args, ctx, dev))
     return row
+
+
+def _split_bucket_and_shards(args, ctx, dev) -> dict:
+    """Split mode on two 512 x 768 crops of phase_b2_split's input (B1's
+    winners and the target): as a bucket (image axis), bit-equal to each
+    crop alone; B2s on two column shards of the first (guards from the
+    neighbour, mirrored at the borders) against their plain versions within
+    B2_SPLIT_RTOL, and their sum against the whole crop; every launch on the
+    tensor-core kernel."""
+    from hybridquantization_tpu_torch.ops import fused_fitness as ff
+
+    q, target, kh, kv, wp, kind = args
+    crops = [(slice(0, 512), slice(0, 768)), (slice(1024, 1536), slice(2048, 2816))]
+    qb = torch.stack([q[..., r, c] for r, c in crops]).contiguous()
+    tb = torch.stack([target[..., r, c] for r, c in crops]).contiguous()
+    host = {"taps_on_host": ctx["taps_on_host"]}
+    before = ff.fused_scielab_err_sums.band_launches
+    bucket = ff.fused_scielab_err_sums(qb, tb, kh, kv, wp, kind, precision="split", **host)
+    singles = [ff.fused_scielab_err_sums(qb[i], tb[i], kh, kv, wp, kind, precision="split", **host) for i in range(2)]
+    crop_rel = max(((singles[i].double() - want.double()).abs() / want.double().abs()).max().item()
+                   for i, want in enumerate(ff.fused_scielab_err_sums_reference(qb, tb, kh, kv, wp, kind,
+                                                                                precision="split")))
+    half, split_col = kh.shape[1] // 2, 400
+    q0, t0 = qb[0], tb[0]
+    guards = [(q0[..., :half].flip(-1), q0[..., split_col:split_col + half]),
+              (q0[..., split_col - half:split_col], q0[..., -half:].flip(-1))]
+    shard_rel, total = 0.0, 0.0
+    for (lo, hi), (left, right) in zip(((0, split_col), (split_col, 768)), guards):
+        a = (q0[..., lo:hi].contiguous(), t0[..., lo:hi].contiguous(), kh, kv, wp, kind)
+        kw = {"precision": "split", "left_slab": left.contiguous(), "right_slab": right.contiguous()}
+        got = ff.fused_scielab_err_sums(*a, **kw, **host)
+        want = ff.fused_scielab_err_sums_reference(*a, **kw)
+        shard_rel = max(shard_rel, ((got.double() - want.double()).abs() / want.double().abs()).max().item())
+        total = total + got.double()
+    torch.cuda.synchronize()
+    launches = ff.fused_scielab_err_sums.band_launches - before
+    whole_rel = ((total - singles[0].double()).abs() / singles[0].double().abs()).max().item()
+    if launches != 5:
+        fail(f"B2 split bucket and shards: {launches} tensor-core launches of 5")
+    if not all(torch.equal(bucket[i], singles[i]) for i in range(2)):
+        fail("B2 split: a bucket of two crops differs from the crops alone")
+    if not max(crop_rel, shard_rel, whole_rel) <= B2_SPLIT_RTOL:
+        fail(f"B2 split crops: {crop_rel} from plain; B2s shards {shard_rel} from plain, their sum {whole_rel} "
+             f"from the whole crop (> {B2_SPLIT_RTOL})")
+    print(f"B2 split on two 768x512 crops: {crop_rel:.3g} from plain, a bucket bit-equal to each crop alone; "
+          f"2 column shards {shard_rel:.3g} from plain, their sum {whole_rel:.3g} from the whole crop "
+          f"(<= {B2_SPLIT_RTOL}); {launches} tensor-core launches")
+    return {"bucket_bit_equal": True, "crops_max_rel_err": crop_rel, "slabs_max_rel_err": shard_rel,
+            "slabs_sum_vs_whole_rel": whole_rel}
 
 
 def _peak_mib(launch) -> float:
@@ -644,6 +707,7 @@ def _counts() -> dict:
     return {"assign_pop": ak.assign_opp_usage_pop.launches,
             "fused_fitness": ff.fused_scielab_err_sums.launches,
             "fused_fitness_split": ff.fused_scielab_err_sums.split_launches,
+            "fused_fitness_band": ff.fused_scielab_err_sums.band_launches,
             "assign_idx": ak.assign_idx.launches,
             "lloyd_step": ak.lloyd_step.launches,
             "probe_kloop": pk.kloop_assign.launches,
@@ -663,6 +727,7 @@ def _reset_counts() -> None:
     ff.fused_scielab_err_sums.slab_launches = 0
     ff.fused_scielab_err_sums.two_pass_launches = 0
     ff.fused_scielab_err_sums.split_launches = 0
+    ff.fused_scielab_err_sums.band_launches = 0
 
 
 def _fused_only(what: str) -> None:
@@ -1290,8 +1355,9 @@ def phase_tpu_f32x3(dev) -> tuple[dict, dict, dict]:
     torch.cuda.synchronize()
     launches = _counts()
     if (launches["split_assign"] == 0 or launches["fused_fitness"] == 0 or launches["assign_pop"]
-            or launches["fused_fitness_split"] != launches["fused_fitness"]):
-        fail(f"tpu_f32x3 fitness launched {launches}: split_assign and B2 in split mode, and not B1")
+            or not launches["fused_fitness_split"] == launches["fused_fitness_band"] == launches["fused_fitness"]):
+        fail(f"tpu_f32x3 fitness launched {launches}: split_assign and B2 in split mode on the tensor-core "
+             "kernel, and not B1")
     x4 = pack_pixels(ctx["assign_pixels"])
     c4, o4 = pk.pack_palette(pals_dev, cs.srgb_to_opp(pals_dev))
     (opp, counts, idx), (p_opp, p_counts, p_idx), plain_ms = _versus(
@@ -1326,7 +1392,7 @@ def phase_tpu_f32x3(dev) -> tuple[dict, dict, dict]:
               "pop": pop, "max_abs_err": float((b2_got - b2_want).abs().max()), "max_rel_err": b2_rel,
               "fp32_vs_plain_split_rel": b2_far, "ms": b2_ms, "fp32_ms": b2_fp32_ms, "plain_ms": b2_plain_s * 1e3,
               **b2_bound(size, size, ctx["kh"].shape[1], pop, split=True),
-              "launches_from": "tpu_f32x3_config1", "launches": launches["fused_fitness_split"]}
+              "launches_from": "tpu_f32x3_config1", "launches": launches["fused_fitness_band"]}
     print(f"tpu_f32x3 config-1 natural 512x512 K={k} pop={pop}: the whole emulated fitness (conv split) on "
           f"the card vs plain max rel gap {rel:.3g} <= {B2_SPLIT_RTOL}, with fp32 B2 {fit_far:.3g} "
           f"({fit_ms:.3f} ms an evaluation); "
@@ -2078,12 +2144,13 @@ def main() -> int:
     split_row = next(r for r in kernels if r["name"] == "split_assign")
     split_row["variants"].append({**{k: split_row[k] for k in ("name", "route", "source")}, **f32x3_row})
     split_row["launches"] += f32x3["split_assign"]
-    # B2's split mode, the TPU kernel's f32x3: its numbers at the shape of the
-    # emulation's path (config-1), launches from that path; 4K under "checks"
+    # B2's split mode, the TPU kernel's f32x3, on the tensor cores: its numbers
+    # at the shape of the emulation's path (config-1), launches from that
+    # path; 4K under "checks"
     kernels.append({"name": "fused_fitness_f32x3", "route": "cuda",
-                    "source": "hybridquantization_tpu_torch/csrc/fused_fitness.cu",
+                    "source": "hybridquantization_tpu_torch/csrc/band_fitness.cu",
                     "replaces": "hybridquantization_tpu/ops/fused_fitness.py:597", **f32x3_b2_row,
-                    "checks": [b2_split], "launches_by_path": by_path("fused_fitness_split")})
+                    "checks": [b2_split], "launches_by_path": by_path("fused_fitness_band")})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

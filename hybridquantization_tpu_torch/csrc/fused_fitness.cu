@@ -33,16 +33,16 @@
 // split mode is the TPU kernel's f32x3 (fused_fitness.py:369-393, :415-424,
 // the matrix split :550-555): every conv operand is split into bf16 hi and
 // lo, x = hi + lo with hi = bf16(x), lo = bf16(x - hi), and each product is
-// hi.hi + hi.lo + lo.hi (lo.lo dropped), three exact products added to the
-// f32 accumulator with fmaf. The horizontal pass's output is kept as its
-// hi/lo pair (the TPU's t7a/t7b bf16 scratches, :388-392, :595-596), which
-// the vertical pass multiplies the same way. A split value travels as one
-// 32-bit word, hi's bf16 bits above lo's (split_pack), in the staging
-// buffers, the ring and the two-pass scratch, so shared memory is as in
-// fp32 mode; the coefficients in shared memory are packed words too, the
-// default taps' hi and lo two kernel parameters. The R-folded edge matrices
-// of the TPU multiply the clamped edge block by reversed taps, product by
-// product, which is reflection by index here. LAB and Delta-E stay f32.
+// hi.hi + hi.lo + lo.hi (lo.lo dropped). Up to the plan's MAX_FUSED_TAPS it
+// runs on the tensor cores (band_fitness.cu); above, the two-pass kernels
+// below run it here: three exact products added to the f32 accumulator
+// with fmaf, the horizontal pass's output kept as its hi/lo pair (the TPU's
+// t7a/t7b bf16 scratches, :388-392, :595-596), which the vertical pass
+// multiplies the same way. A split value travels as one 32-bit word, hi's
+// bf16 bits above lo's (split_pack), in the two-pass scratch. The R-folded
+// edge matrices of the TPU multiply the clamped edge block by reversed
+// taps, product by product, which is reflection by index here. LAB and
+// Delta-E stay f32.
 //
 // What bounds it on the H100: fp32 operations. Two passes of 7 filters x
 // taps multiply-adds per member pixel (294 at the default 21 taps) against
@@ -97,11 +97,11 @@
 #include <atomic>
 
 #include "delta_e.cuh"
+#include "fitness_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kReduceThreads = 256;
 
 // the fused kernel's tile: kTileW columns; rows staged and filtered
 // horizontally kTileH at a time, and output kTileH at a time
@@ -167,28 +167,6 @@ __device__ __forceinline__ float fma_packed(float c, float v, float acc) {
   return kMode == kSplit ? fma_tap<kMode>(split_hi(c), split_lo(c), v, acc) : fmaf(c, v, acc);
 }
 
-__device__ __forceinline__ int mirror(int i, int n) {
-  return i < 0 ? -i - 1 : (i >= n ? 2 * n - i - 1 : i);
-}
-
-// mirror, then clamped: indices more than n beyond a border only feed
-// outputs that are never summed
-__device__ __forceinline__ int mirror_clamped(int i, int n) {
-  return min(max(mirror(i, n), 0), n - 1);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // ---- the layout of the fused kernel's shared memory, in floats: 2 staging
 // ---- buffers [3][kTileH][stage_width], the ring [ring_groups * kTileH][7]
 // ---- [kTileW], and except at kDefaultTaps the two stacks [2][taps][8]
@@ -228,8 +206,8 @@ __device__ __forceinline__ void stage_group(float* buf, const float* q, const fl
   }
 }
 
-// bf16 and split modes: round or split what this thread staged (its own
-// copies have landed), so that each sample is converted once
+// bf16 mode: round what this thread staged (its own copies have landed),
+// so that each sample is converted once
 template <int kMode>
 __device__ __forceinline__ void convert_group(float* buf, int sw) {
   const int lane = threadIdx.x & 31;
@@ -307,12 +285,11 @@ __device__ __forceinline__ void vpass_row(const float* skv, int taps, int j, con
 
 // The horizontal pass of one staged group: thread (row i, columns 4 cg ..
 // 4 cg + 3) writes its 4 x 7 outputs to ring rows `slot` (rounded to bf16
-// in bf16 mode, as hi/lo pairs in split mode). Each accumulator takes its
-// taps in ascending order.
+// in bf16 mode). Each accumulator takes its taps in ascending order.
 template <int kTaps, int kMode>
 __device__ __forceinline__ void hpass_group(const float* buf, float* ring, int slot0,
-                                            const DefaultTaps& dt, const DefaultTaps& dtl,
-                                            const float* skh, int taps, int sw) {
+                                            const DefaultTaps& dt, const float* skh, int taps,
+                                            int sw) {
   const int i = threadIdx.x / (kTileW / kRX);
   const int cg = threadIdx.x - i * (kTileW / kRX);
   const size_t cs = (size_t)kTileH * sw;  // channel stride of the staging buffer
@@ -339,13 +316,13 @@ __device__ __forceinline__ void hpass_group(const float* buf, float* ring, int s
         for (int k = 0; k < kRX; ++k) {
           const int t = 4 * j4 + jj - k;
           if (t >= 0 && t < kTaps) {
-            acc[k][0] = fma_tap<kMode>(dt.h[0][t], dtl.h[0][t], v0[jj], acc[k][0]);
-            acc[k][1] = fma_tap<kMode>(dt.h[1][t], dtl.h[1][t], v1[jj], acc[k][1]);
-            acc[k][2] = fma_tap<kMode>(dt.h[2][t], dtl.h[2][t], v2[jj], acc[k][2]);
-            acc[k][3] = fma_tap<kMode>(dt.h[3][t], dtl.h[3][t], v0[jj], acc[k][3]);
-            acc[k][4] = fma_tap<kMode>(dt.h[4][t], dtl.h[4][t], v1[jj], acc[k][4]);
-            acc[k][5] = fma_tap<kMode>(dt.h[5][t], dtl.h[5][t], v2[jj], acc[k][5]);
-            acc[k][6] = fma_tap<kMode>(dt.h[6][t], dtl.h[6][t], v0[jj], acc[k][6]);
+            acc[k][0] = fmaf(dt.h[0][t], v0[jj], acc[k][0]);
+            acc[k][1] = fmaf(dt.h[1][t], v1[jj], acc[k][1]);
+            acc[k][2] = fmaf(dt.h[2][t], v2[jj], acc[k][2]);
+            acc[k][3] = fmaf(dt.h[3][t], v0[jj], acc[k][3]);
+            acc[k][4] = fmaf(dt.h[4][t], v1[jj], acc[k][4]);
+            acc[k][5] = fmaf(dt.h[5][t], v2[jj], acc[k][5]);
+            acc[k][6] = fmaf(dt.h[6][t], v0[jj], acc[k][6]);
           }
         }
       }
@@ -381,8 +358,7 @@ __device__ __forceinline__ void hpass_group(const float* buf, float* ring, int s
 // pixels' Delta-E, in row order. The ring holds the mode's operands.
 template <int kTaps, int kMode>
 __device__ __forceinline__ float vpass_chunk(const float* ring, int slot, int ring_rows,
-                                             const DefaultTaps& dt, const DefaultTaps& dtl,
-                                             const float* skv, int taps,
+                                             const DefaultTaps& dt, const float* skv, int taps,
                                              const float* tgt, int y, int y_end, int x, int W,
                                              size_t plane, float wp0, float wp1, float wp2,
                                              int kind) {
@@ -410,7 +386,7 @@ __device__ __forceinline__ float vpass_chunk(const float* ring, int slot, int ri
         const int t = j - k;
         if (t >= 0 && t < kTaps) {
 #pragma unroll
-          for (int f = 0; f < 7; ++f) acc[k][f] = fma_tap<kMode>(dt.v[f][t], dtl.v[f][t], v[f], acc[k][f]);
+          for (int f = 0; f < 7; ++f) acc[k][f] = fmaf(dt.v[f][t], v[f], acc[k][f]);
         }
       }
     }
@@ -465,34 +441,18 @@ __device__ __forceinline__ float vpass_chunk(const float* ring, int slot, int ri
   return de;
 }
 
-// Fixed-order block reduction of `v` into partials[index]: warp tree, then
-// warp 0 over the warp sums.
-__device__ __forceinline__ void block_sum(float v, float* warp_sums, float* out) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x >> 5;
-    float s = lane < n_warps ? warp_sums[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) *out = s;
-  }
-}
-
 // One block: member blockIdx.z, columns [32 blockIdx.x, + 32), rows
 // [rows_per_block blockIdx.y, + rows_per_block). kTaps: the default taps
-// (coefficients in dt, and in split mode their lo parts in dtl) or 0 (any
-// odd taps whose layout fits, from kh, kv).
+// (coefficients in dt) or 0 (any odd taps whose layout fits, from kh, kv).
+// kMode: fp32 or bf16 (split mode runs on band_fitness.cu's kernel).
 template <int kTaps, int kMode, bool kSlabs>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_kernel(const float* __restrict__ q, const float* __restrict__ left,
              const float* __restrict__ right, const float* __restrict__ target,
              const float* __restrict__ kh, const float* __restrict__ kv,
-             const __grid_constant__ DefaultTaps dt, const __grid_constant__ DefaultTaps dtl,
-             int taps, int pop, int H, int W, int rows_per_block, float wp0, float wp1,
+             const __grid_constant__ DefaultTaps dt, int taps, int pop, int H, int W, int rows_per_block, float wp0, float wp1,
              float wp2, int kind, float* __restrict__ partials) {
+  static_assert(kMode != kSplit, "split mode runs on band_fitness.cu's kernel");
   extern __shared__ __align__(16) float smem[];
   __shared__ float warp_sums[kThreads / 32];
   if (kTaps) taps = kTaps;
@@ -540,13 +500,13 @@ fused_kernel(const float* __restrict__ q, const float* __restrict__ left,
     }
     if (kMode != kFp32) convert_group<kMode>(buf, sw);
     __syncthreads();  // the group is staged; the ring's old rows are read
-    hpass_group<kTaps, kMode>(buf, ring, (g % G) * kTileH, dt, dtl, skh, taps, sw);
+    hpass_group<kTaps, kMode>(buf, ring, (g % G) * kTileH, dt, skh, taps, sw);
     __syncthreads();
     const int c = g - (G - 1);  // the output chunk whose window is now complete
     if (c >= 0) {
       const int rg = threadIdx.x / kTileW;
       const int y = y0 + c * kTileH + kRY * rg;
-      de += vpass_chunk<kTaps, kMode>(ring, (c % G) * kTileH + kRY * rg, ring_rows, dt, dtl, skv,
+      de += vpass_chunk<kTaps, kMode>(ring, (c % G) * kTileH + kRY * rg, ring_rows, dt, skv,
                                       taps, tgt, y, y_end, x0 + (threadIdx.x & (kTileW - 1)), W,
                                       plane, wp0, wp1, wp2, kind);
     }
@@ -659,21 +619,6 @@ vpass_de_kernel(const float* __restrict__ t7, const float* __restrict__ target,
   block_sum(de, warp_sums, partials + ((size_t)p * gridDim.y + y) * gridDim.x + blockIdx.x);
 }
 
-__global__ void __launch_bounds__(kReduceThreads)
-reduce_kernel(const float* __restrict__ partials, int n, float* __restrict__ sums) {
-  __shared__ double s[kReduceThreads];
-  const float* src = partials + (size_t)blockIdx.x * n;
-  double acc = 0.0;
-  for (int i = threadIdx.x; i < n; i += kReduceThreads) acc += src[i];
-  s[threadIdx.x] = acc;
-  __syncthreads();
-  for (int w = kReduceThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) sums[blockIdx.x] = (float)s[0];
-}
-
 // one call's arguments, as the C entry point takes them
 struct Call {
   const float *q, *left, *right, *target, *kh, *kv;
@@ -687,7 +632,7 @@ struct Call {
 };
 
 template <int kTaps, int kMode, bool kSlabs>
-int launch_fused(const Call& a, const DefaultTaps& dt, const DefaultTaps& dtl) {
+int launch_fused(const Call& a, const DefaultTaps& dt) {
   auto kernel = fused_kernel<kTaps, kMode, kSlabs>;
   // the dynamic shared memory this variant may use on each device, raised
   // only when a launch needs more (not set again on every launch)
@@ -705,22 +650,21 @@ int launch_fused(const Call& a, const DefaultTaps& dt, const DefaultTaps& dtl) {
     return err;
   }
   kernel<<<a.grid, kThreads, a.smem, a.stream>>>(a.q, a.left, a.right, a.target, a.kh, a.kv, dt,
-                                                 dtl, a.taps, a.pop, a.H, a.W, a.rows_per_block,
-                                                 a.wp0, a.wp1, a.wp2, a.kind, a.partials);
+                                                 a.taps, a.pop, a.H, a.W, a.rows_per_block, a.wp0,
+                                                 a.wp1, a.wp2, a.kind, a.partials);
   return (int)cudaGetLastError();
 }
 
 template <int kTaps, int kMode>
-int launch_fused_mode(const Call& a, const DefaultTaps& dt, const DefaultTaps& dtl) {
-  return a.left != nullptr ? launch_fused<kTaps, kMode, true>(a, dt, dtl)
-                           : launch_fused<kTaps, kMode, false>(a, dt, dtl);
+int launch_fused_mode(const Call& a, const DefaultTaps& dt) {
+  return a.left != nullptr ? launch_fused<kTaps, kMode, true>(a, dt)
+                           : launch_fused<kTaps, kMode, false>(a, dt);
 }
 
 template <int kTaps>
-int launch_fused_variant(int mode, const Call& a, const DefaultTaps& dt, const DefaultTaps& dtl) {
-  if (mode == kBf16) return launch_fused_mode<kTaps, kBf16>(a, dt, dtl);
-  if (mode == kSplit) return launch_fused_mode<kTaps, kSplit>(a, dt, dtl);
-  return launch_fused_mode<kTaps, kFp32>(a, dt, dtl);
+int launch_fused_variant(int mode, const Call& a, const DefaultTaps& dt) {
+  if (mode == kBf16) return launch_fused_mode<kTaps, kBf16>(a, dt);
+  return launch_fused_mode<kTaps, kFp32>(a, dt);
 }
 
 template <int kMode>
@@ -747,17 +691,17 @@ int launch_two_pass(const Call& a) {
 // right of column W - 1); target (B, 3, H, W) LAB, one per image; kh, kv
 // (7, taps) horizontal / vertical filter stacks on the device; host_taps:
 // at the default 21 taps on the fused path, the same two stacks on the host
-// (kh then kv, 294 floats, already rounded to bf16 in bf16 mode; in split
-// mode 588 floats, the two stacks' hi parts, then their lo parts), which the
-// kernel takes as FMA operands; else null. The plan (ops/fused_fitness.py
+// (kh then kv, 294 floats, already rounded to bf16 in bf16 mode), which
+// the kernel takes as FMA operands; else null. The plan (ops/fused_fitness.py
 // fused_plan): rows_per_block, the fused kernel's segment, a positive
 // multiple of 32, or 0 for the two-pass path (which then needs the t7
 // (members, 7, H, W) scratch); smem_bytes, a block's dynamic shared memory;
 // n_partials, the blocks of a member. partials: (members, n_partials)
 // scratch; sums (members,) output. All f32 contiguous. kind: 0 CIE76, 1
 // CIE94, 2 CIEDE2000; mode: 0 fp32, 1 bf16 (round the conv operands to
-// bf16), 2 split (the TPU's f32x3). Needs taps odd, taps / 2 < H, without
-// guards taps / 2 < W. Returns the first non-zero CUDA error of the launches.
+// bf16), 2 split (the TPU's f32x3; the two-pass path only: band_fitness.cu
+// runs it fused). Needs taps odd, taps / 2 < H, without guards taps / 2 < W.
+// Returns the first non-zero CUDA error of the launches.
 extern "C" int hq_fused_err_sums(const float* q, const float* left, const float* right,
                                  const float* target, const float* kh, const float* kv,
                                  const float* host_taps, int taps, int members, int pop, int H,
@@ -768,8 +712,8 @@ extern "C" int hq_fused_err_sums(const float* q, const float* left, const float*
   const bool fused = rows_per_block > 0;
   if (members <= 0 || pop <= 0 || members % pop != 0 || H <= 0 || W <= 0 || taps <= 0 ||
       taps % 2 == 0 || taps / 2 >= H || (!slabs && taps / 2 >= W) || slabs != (right != nullptr) ||
-      kind < 0 || kind > 2 || mode < kFp32 || mode > kSplit || members > 65535 ||
-      rows_per_block < 0 || rows_per_block % kTileH != 0 || smem_bytes < 0 ||
+      kind < 0 || kind > 2 || mode < kFp32 || mode > kSplit || (fused && mode == kSplit) ||
+      members > 65535 || rows_per_block < 0 || rows_per_block % kTileH != 0 || smem_bytes < 0 ||
       (size_t)smem_bytes > kMaxSmem || (host_taps != nullptr) != (fused && taps == kDefaultTaps))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = fused ? dim3((W + kTileW - 1) / kTileW, (H + rows_per_block - 1) / rows_per_block,
@@ -780,21 +724,16 @@ extern "C" int hq_fused_err_sums(const float* q, const float* left, const float*
                   kind, t7, partials, grid, (size_t)smem_bytes, (cudaStream_t)stream};
   int err = 0;
   if (fused) {
-    DefaultTaps dt = {}, dtl = {};
+    DefaultTaps dt = {};
     if (host_taps != nullptr) {
-      const int stack = 2 * 7 * kDefaultTaps;  // kh then kv
       for (int f = 0; f < 7; ++f)
         for (int t = 0; t < kDefaultTaps; ++t) {
           dt.h[f][t] = host_taps[f * kDefaultTaps + t];
           dt.v[f][t] = host_taps[(7 + f) * kDefaultTaps + t];
-          if (mode == kSplit) {
-            dtl.h[f][t] = host_taps[stack + f * kDefaultTaps + t];
-            dtl.v[f][t] = host_taps[stack + (7 + f) * kDefaultTaps + t];
-          }
         }
     }
-    err = host_taps != nullptr ? launch_fused_variant<kDefaultTaps>(mode, a, dt, dtl)
-                               : launch_fused_variant<0>(mode, a, dt, dtl);
+    err = host_taps != nullptr ? launch_fused_variant<kDefaultTaps>(mode, a, dt)
+                               : launch_fused_variant<0>(mode, a, dt);
   } else {
     err = mode == kBf16 ? launch_two_pass<kBf16>(a)
                         : (mode == kSplit ? launch_two_pass<kSplit>(a) : launch_two_pass<kFp32>(a));

@@ -37,6 +37,9 @@ _SIGNATURES = {
     # feats, pal, opp_pal, B, P, K, pop, bf16, average, packed, opp_out, counts,
     # idx_out, stream
     "hq_assign_pop": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # q, left, right, target, bands, vmap, vtables, taps, members, pop, H, W, wp0, wp1, wp2,
+    # kind, rows_per_block, smem_bytes, n_partials, partials, sums, stream
+    "hq_band_err_sums": [_P, _P, _P, _P, _P, _P, *[_I] * 6, _F, _F, _F, *[_I] * 4, _P, _P, _P],
     # feats, pal, F, M, P, K, idx_out, stream
     "hq_assign_idx": [_P, _P, _I, _I, _I, _I, _P, _P],
     # feats, weights, pal, F, M, P, K, blocks, tiles_per_block, partials, out, stream

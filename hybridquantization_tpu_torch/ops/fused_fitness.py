@@ -28,8 +28,9 @@ kernel's f32x3 is about 1e-5 relative (its doc, `:42-51`). The LAB and
 Delta-E tail stays f32.
 
 On a CUDA tensor `fused_scielab_err_sums` launches the hand-written kernels
-of `csrc/fused_fitness.cu` (built at first use, ops/_cuda.py) or raises; on
-a CPU tensor it runs `fused_scielab_err_sums_reference`. The TPU layout
+of `csrc/fused_fitness.cu`, and in split mode up to MAX_FUSED_TAPS taps
+those of `csrc/band_fitness.cu` (built at first use, ops/_cuda.py), or
+raises; on a CPU tensor it runs `fused_scielab_err_sums_reference`. The TPU layout
 devices (128-multiple mirror padding, block-banded filter matrices with
 R-folded edges, VMEM stripe budgets) are not needed: the kernel reflects at
 the true borders by index (an R-folded edge matrix multiplies the clamped
@@ -40,7 +41,11 @@ function in every mode).
 filter has 21) one fused kernel keeps the 7-channel intermediate in shared
 memory; above that, where its ring of intermediate rows no longer fits an
 SM's 227 KB, two kernels pass it through a (members, 7, H, W) device
-scratch. Either way a fixed-order reduce kernel follows.
+scratch. Split mode up to MAX_FUSED_TAPS takes the "band" path instead:
+`band_fitness.cu` runs both passes' three hi/lo products as wgmma band
+products on the tensor cores (the band tiles from `band_tables`, the layout
+from `band_plan`); above it, the two-pass kernels in split mode. Every path
+ends in a fixed-order reduce kernel.
 
 B2s, JAX's `edges="slabs"` variant, serves a column shard of a wider image
 (parallel.fast): `left_slab` and `right_slab` are the (…, pop, 3, H, half)
@@ -55,6 +60,7 @@ the port's column plan has no padded columns to mask.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -84,6 +90,18 @@ SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 # to 97 taps, and up to there it beats the two-pass path, which takes the
 # filters above (chip_smoke.py phase_b2_paths, PERF.md)
 MAX_FUSED_TAPS = 97
+# split mode's tensor-core kernel (csrc/band_fitness.cu, whose kTile, kChunk
+# and layout() these mirror): 64-column strips (wgmma's M) walked in tiles of
+# 64 output rows, products 32 rows wide, a segment of BAND_ROWS_PER_BLOCK
+# rows per block; band_plan below
+BAND_TILE = 64
+BAND_CHUNK = 32
+BAND_ROWS_PER_BLOCK = 256
+# ... or shorter segments (multiples of 64), so that an image has at least
+# this many blocks a member: a population of 4 then fills the card's 132 SMs
+BAND_MIN_BLOCKS = 64
+BAND_PIECE = 16  # f32 window rows staged at a time, two pieces in flight
+BAND_TAIL = 8  # a tap's hi part under 2^-BAND_TAIL of its filter's largest is in the tail
 
 
 def fused_smem_bytes(taps: int) -> int:
@@ -98,14 +116,52 @@ def fused_smem_bytes(taps: int) -> int:
     return 4 * (2 * 3 * TILE_H * stage_w + ring_groups * TILE_H * 7 * TILE_W + coeffs)
 
 
-def fused_plan(H: int, W: int, taps: int) -> dict:
+def band_steps(taps: int) -> int:
+    """Steps of 16 in a pass's contraction on the band path: the 64 outputs
+    of a tile and their taps - 1 halo, rounded up."""
+    return -(-(63 + taps) // 16)
+
+
+def band_plan(H: int, W: int, taps: int, vtables: int = 1) -> dict:
+    """Split mode's tensor-core path ("band", csrc/band_fitness.cu) for an H
+    x W image: `rows_per_block` rows of a 64-column strip per block (at most
+    BAND_ROWS_PER_BLOCK and the height rounded up to 64, and shorter down to
+    64 while the image has fewer than BAND_MIN_BLOCKS blocks), walked in
+    64-row tiles; `steps` steps of 16
+    in each pass's contraction; `kp` = 16 steps staged columns a tile, `nh`
+    staged rows (chunks of 32 covering the steps); `cores`, the core matrices
+    of a horizontal and of a vertical band table (`band_tables`);
+    `smem_bytes`: the staged window's bf16 hi and lo, the tables (the seven
+    filters' horizontal ones and `vtables` vertical ones of their own, three
+    parts each) and two pieces of BAND_PIECE f32 window rows; `partials`: the
+    blocks of a member."""
+    steps = band_steps(taps)
+    kp, nh = 16 * steps, BAND_CHUNK * ((steps + 1) // 2)
+    cores = (2 * steps + 7, 2 * steps - 1)
+    strips = -(-W // BAND_TILE)
+    rows = min(BAND_ROWS_PER_BLOCK, -(-H // BAND_TILE) * BAND_TILE)
+    while rows > BAND_TILE and strips * -(-H // rows) < BAND_MIN_BLOCKS:
+        rows -= BAND_TILE
+    return {"path": "band", "rows_per_block": rows, "steps": steps, "kp": kp, "nh": nh, "cores": cores,
+            "smem_bytes": 4 * kp * nh + 3 * 128 * (7 * cores[0] + vtables * cores[1]) + 2 * 4 * BAND_PIECE * (kp + 4),
+            "partials": strips * -(-H // rows)}
+
+
+def fused_plan(H: int, W: int, taps: int, split: bool = False, vtables: int = 1) -> dict:
     """The B2 kernel path for an H x W image and `taps` taps: "fused" (one
     kernel, `rows_per_block` rows of a 32-column strip per block, at most the
     image's height rounded up to 32) or, above MAX_FUSED_TAPS, "two_pass"
     (an (members, 7, H, W) scratch, 256 columns of a row per block);
     `smem_bytes`: a block's dynamic shared memory; `partials`: the blocks,
-    and the partial sums, of each member. The kernel library launches what
-    the plan says."""
+    and the partial sums, of each member. With `split` (precision "split")
+    the path up to MAX_FUSED_TAPS is `band_plan`'s (with `vtables` vertical
+    band tables of their own) instead of "fused", where its shared memory
+    fits a block. The kernel library launches what the plan says."""
+    if taps <= MAX_FUSED_TAPS and split:
+        plan = band_plan(H, W, taps, vtables)
+        if plan["smem_bytes"] <= SMEM_LIMIT:
+            return plan
+        return {"path": "two_pass", "rows_per_block": 0, "smem_bytes": 7 * taps * 4, "partials": -(-W // 256) * H}
     if taps <= MAX_FUSED_TAPS:
         rows = min(ROWS_PER_BLOCK, -(-H // TILE_H) * TILE_H)
         return {"path": "fused", "rows_per_block": rows, "smem_bytes": fused_smem_bytes(taps),
@@ -121,19 +177,95 @@ def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, bf16_round(x - hi)
 
 
+def band_parts(k: torch.Tensor) -> torch.Tensor:
+    """(F, 3, taps) f32: the (F, taps) stack's taps split as split mode's
+    tensor-core kernel multiplies them: the core of the hi part (`split_bf16`),
+    its tail (the hi parts under 2^-BAND_TAIL of the filter's largest; their
+    sum is the hi part) and the lo part."""
+    hi, lo = split_bf16(k.to(torch.float32))
+    core = hi.abs() >= hi.abs().amax(-1, keepdim=True) * 2.0 ** -BAND_TAIL
+    zero = torch.zeros((), device=k.device)
+    return torch.stack([torch.where(core, hi, zero), torch.where(core, zero, hi), lo], 1)
+
+
+def band_cores(k: torch.Tensor, n: int, top: int) -> torch.Tensor:
+    """(F, 3, n, 8, 8) bf16: the (F, taps) stack's `band_parts`, as n 8 x 8
+    core matrices of their band, C[f, part, e, i, j] = part[f, 8 (top - e) +
+    j - i] (0 outside the taps): row i, column j of the band's block on its
+    diagonal top - e (csrc/band_fitness.cu reads them through wgmma
+    descriptors)."""
+    taps, dev = k.shape[1], k.device
+    j = torch.arange(8, device=dev)
+    idx = 8 * (top - torch.arange(n, device=dev)).view(n, 1, 1) + j.view(1, 1, 8) - j.view(1, 8, 1)
+    vals = band_parts(k)[..., idx.clamp(0, taps - 1)]
+    return torch.where((idx >= 0) & (idx < taps), vals, torch.zeros((), device=dev)).to(torch.bfloat16)
+
+
+class BandTables(NamedTuple):
+    """Split mode's band tables (`band_tables`) as the kernel takes them."""
+    cores: torch.Tensor  # (3 (7 hcores + vtables vcores), 8, 8) bf16
+    vmap: object  # 15 C ints: each filter's vertical base, its part stride, the tails mask
+    vtables: int
+
+
+def band_tables(kh: torch.Tensor, kv: torch.Tensor) -> BandTables:
+    """The band tiles of split mode's tensor-core kernel, on the stacks'
+    device (steps = `band_steps`): the seven filters' horizontal tables
+    (`band_cores` of kh, 2 steps + 7 core matrices from diagonal 2 steps - 1
+    down: every block of the band T[m][k] = kh[k - m] that a tile's 64 x 16
+    steps reach), then a vertical table (2 steps - 1 from diagonal 2 steps -
+    5: the blocks of V[k][n] = kv[k - n] that a chunk of 32 output rows
+    reaches) for each filter whose vertical taps are not its horizontal
+    ones; the others read entries 4 on of their horizontal table. vmap: per
+    filter the core matrix where its vertical table starts and the stride
+    of its parts, then the mask of filters with a tail (bit f: horizontal,
+    bit 7 + f: vertical)."""
+    steps = band_steps(kh.shape[1])
+    hcores, vcores = 2 * steps + 7, 2 * steps - 1
+    own = [f for f in range(7) if not torch.equal(kh[f], kv[f])]
+    base = [own.index(f) * 3 * vcores + 21 * hcores if f in own else 3 * f * hcores + 4 for f in range(7)]
+    stride = [vcores if f in own else hcores for f in range(7)]
+    tails = 0
+    for bit, k in ((0, kh), (7, kv)):
+        tails |= sum(1 << (bit + f) for f in range(7) if bool((band_parts(k[f:f + 1])[0, 1] != 0).any()))
+    cores = [band_cores(kh, hcores, 2 * steps - 1).flatten(0, 2)]
+    if own:
+        cores.append(band_cores(kv[own], vcores, 2 * steps - 5).flatten(0, 2))
+    return BandTables(torch.cat(cores).contiguous(), (ctypes.c_int * 15)(*base, *stride, tails), len(own))
+
+
+#: the last few pairs of stacks split mode ran with, and their band tables:
+#: (kh, kv, their version counters, tables); the stacks are held, so that
+#: another tensor cannot take their place
+_BAND_TABLES: list = []
+
+
+def cached_band_tables(kh: torch.Tensor, kv: torch.Tensor) -> BandTables:
+    """`band_tables(kh, kv)`, made once per pair of stacks (the same tensor
+    objects, not changed in place since), so that a launch of split mode's
+    tensor-core kernel builds no table on the device."""
+    versions = (kh._version, kv._version)
+    for h, v, seen, tables in _BAND_TABLES:
+        if h is kh and v is kv and seen == versions:
+            return tables
+    tables = band_tables(kh.detach(), kv.detach())
+    _BAND_TABLES.insert(0, (kh, kv, versions, tables))
+    del _BAND_TABLES[4:]
+    return tables
+
+
 def kernel_taps(kh: torch.Tensor, kv: torch.Tensor):
     """The default filter's coefficients as the fused kernel takes them: kh
     then kv (2 x 7 x 21 floats) on the host, as ctypes arrays by kernel mode
     (MODES): 0 fp32, 1 rounded to bf16 (so [False] and [True] pick fp32 and
-    bf16), 2 the split's hi stacks then its lo stacks; None for another
-    number of taps. Made once where the stacks are made
-    (pipeline._make_context), so that a launch copies nothing from the
+    bf16); None for another number of taps. Made once where the stacks are
+    made (pipeline._make_context), so that a launch copies nothing from the
     device."""
     if kh.shape[-1] != DEFAULT_TAPS:
         return None
     stacks = torch.stack([kh, kv]).detach().to("cpu", torch.float32)
-    floats = {0: stacks, 1: bf16_round(stacks), 2: torch.cat(split_bf16(stacks))}
-    return {mode: (ctypes.c_float * t.numel())(*t.flatten().tolist()) for mode, t in floats.items()}
+    return {mode: (ctypes.c_float * t.numel())(*t.flatten().tolist())
+            for mode, t in ((0, stacks), (1, bf16_round(stacks)))}
 
 
 def _conv_pass(x: torch.Tensor, k: torch.Tensor, axis: int, precision: str, mirrored: bool) -> torch.Tensor:
@@ -270,7 +402,12 @@ def fused_scielab_err_sums(
         doc), each shaped like q with taps // 2 columns; without them the
         horizontal pass mirrors at both column borders.
       taps_on_host: `kernel_taps(kh, kv)`, made once for the stacks; without
-        it a CUDA launch at the default 21 taps copies them from the device.
+        it a fused launch at the default 21 taps copies them from the device.
+        Split mode's tensor-core kernel takes `cached_band_tables(kh, kv)`.
+
+    Split mode runs on the tensor cores (`band_plan`, csrc/band_fitness.cu)
+    up to MAX_FUSED_TAPS taps and in the two-pass kernels above; every
+    CUDA launch takes one of the hand-written kernels, or raises.
     """
     _check(q, target, kh, kv, deltaE, precision, left_slab, right_slab)
     if q.device.type == "cpu":
@@ -291,25 +428,40 @@ def fused_scielab_err_sums(
         left_slab, right_slab = left_slab.contiguous(), right_slab.contiguous()
     wp = [float(v) for v in whitepoint]
     mode = MODES[precision]
-    plan = fused_plan(H, W, taps)
-    fused = plan["path"] == "fused"
+    bands = cached_band_tables(kh, kv) if mode == MODES["split"] and taps <= MAX_FUSED_TAPS else None
+    plan = fused_plan(H, W, taps, split=mode == MODES["split"], vtables=bands.vtables if bands else 1)
+    path = plan["path"]
+    lib = _cuda.library()
+    dev = q.device
+    partials = torch.empty((members, plan["partials"]), dtype=torch.float32, device=dev)
+    sums = torch.empty((*lead, pop), dtype=torch.float32, device=dev)
+    guards = (left_slab.data_ptr(), right_slab.data_ptr()) if slabs else (None, None)
+    fused_scielab_err_sums.launches += 1
+    fused_scielab_err_sums.slab_launches += slabs
+    fused_scielab_err_sums.two_pass_launches += path == "two_pass"
+    fused_scielab_err_sums.split_launches += mode == MODES["split"]
+    fused_scielab_err_sums.band_launches += path == "band"
+    if path == "band":
+        _cuda.check(
+            lib.hq_band_err_sums(
+                q.data_ptr(), *guards, target.data_ptr(), bands.cores.data_ptr(),
+                ctypes.addressof(bands.vmap), bands.vtables,
+                taps, members, pop, H, W, wp[0], wp[1], wp[2], DELTA_E_KINDS.index(deltaE),
+                plan["rows_per_block"], plan["smem_bytes"], plan["partials"], partials.data_ptr(),
+                sums.data_ptr(), _cuda.stream(dev),
+            ),
+            "hq_band_err_sums",
+        )
+        return sums
+    fused = path == "fused"
     param = None
     if fused and taps == DEFAULT_TAPS:
         param = (taps_on_host or kernel_taps(kh, kv))[mode]
-    lib = _cuda.library()
-    dev = q.device
     # the two-pass path's intermediate; the fused kernel keeps it on the SM
     t7 = None if fused else torch.empty((members, 7, H, W), dtype=torch.float32, device=dev)
-    partials = torch.empty((members, plan["partials"]), dtype=torch.float32, device=dev)
-    sums = torch.empty((*lead, pop), dtype=torch.float32, device=dev)
-    fused_scielab_err_sums.launches += 1
-    fused_scielab_err_sums.slab_launches += slabs
-    fused_scielab_err_sums.two_pass_launches += not fused
-    fused_scielab_err_sums.split_launches += mode == MODES["split"]
     _cuda.check(
         lib.hq_fused_err_sums(
-            q.data_ptr(), left_slab.data_ptr() if slabs else None,
-            right_slab.data_ptr() if slabs else None, target.data_ptr(), kh.data_ptr(), kv.data_ptr(),
+            q.data_ptr(), *guards, target.data_ptr(), kh.data_ptr(), kv.data_ptr(),
             ctypes.addressof(param) if param is not None else None, taps, members, pop, H, W,
             wp[0], wp[1], wp[2], DELTA_E_KINDS.index(deltaE), mode, plan["rows_per_block"],
             plan["smem_bytes"], plan["partials"], t7.data_ptr() if t7 is not None else None,
@@ -328,3 +480,5 @@ fused_scielab_err_sums.slab_launches = 0
 fused_scielab_err_sums.two_pass_launches = 0
 #: of those, the launches in split mode (the TPU's f32x3)
 fused_scielab_err_sums.split_launches = 0
+#: of those, the launches of split mode's tensor-core kernel (csrc/band_fitness.cu)
+fused_scielab_err_sums.band_launches = 0

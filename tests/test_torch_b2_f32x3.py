@@ -183,18 +183,21 @@ def test_split_image_axis_runs_each_image_on_its_own(frame):
 
 
 def test_split_taps_and_the_cpu_wrapper():
-    """kernel_taps' split entry: the hi stacks then the lo stacks, hi =
-    bf16(x), lo = bf16(x - hi); [False] and [True] still pick fp32 and bf16.
-    On the CPU the wrapper runs the plain version and counts no launch."""
+    """The split's taps as the tensor-core kernel's band tables hold them:
+    the stacks' hi = bf16(x), as its core and its tail, and lo = bf16(x -
+    hi); kernel_taps' [False] and [True] still pick fp32 and bf16. On the
+    CPU the wrapper runs the plain version and counts no launch."""
     kh, kv = _kernels()
     taps = ff.kernel_taps(kh, kv)
     stacks = torch.stack([kh, kv])
-    split = torch.tensor(list(taps[ff.MODES["split"]])).reshape(2, 2, 7, 21)
-    assert torch.equal(split[0], ak.bf16_round(stacks))
-    assert torch.equal(split[1], ak.bf16_round(stacks - split[0]))
+    # row 0 of a band's core matrix on diagonal 0 holds taps 0..7: core, tail, lo
+    split = torch.stack([ff.band_cores(s, 3, 2).float()[:, :, 2, 0] for s in stacks])
+    assert torch.equal(split[:, :, 0] + split[:, :, 1], ak.bf16_round(stacks[..., :8]))
+    assert torch.equal(split[:, :, 2], ak.bf16_round(stacks[..., :8] - split[:, :, 0] - split[:, :, 1]))
+    hi, lo = ff.split_bf16(stacks)
     normal = stacks.abs() > 1e-30  # a bf16 split of an f32 subnormal keeps what bf16 can hold
-    assert (split[1] != 0).any()
-    assert ((split[0] + split[1] - stacks).abs() <= 2**-16 * stacks.abs())[normal].all()
+    assert (lo != 0).any()
+    assert ((hi + lo - stacks).abs() <= 2**-16 * stacks.abs())[normal].all()
     assert list(taps[False]) == list(taps[0]) and list(taps[True]) == list(taps[1])
     before = (ff.fused_scielab_err_sums.launches, ff.fused_scielab_err_sums.split_launches)
     q = torch.rand((2, 3, 24, 30), generator=torch.Generator().manual_seed(3))

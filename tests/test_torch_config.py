@@ -155,7 +155,7 @@ def test_import_loads_no_jax():
         "import hybridquantization_tpu_torch.parallel.population, hybridquantization_tpu_torch.parallel.halo\n"
         "import hybridquantization_tpu_torch.parallel.sharded, hybridquantization_tpu_torch.parallel.fast\n"
         "import tests._torch_mesh_worker\n"
-        "import chip_smoke, chip_profile, chip_mesh, chip_parity, chip_draws, chip_c2, chip_steps\n"
+        "import chip_smoke, chip_profile, chip_mesh, chip_parity, chip_draws, chip_c2, chip_steps, chip_band\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('hybridquantization_tpu.') or m == 'hybridquantization_tpu')\n"
         "assert not bad, bad\n"
@@ -185,7 +185,7 @@ def test_cuda_device_without_a_card_fails():
 
 
 @pytest.mark.parametrize(
-    "script", ["chip_smoke.py", "chip_profile.py", "chip_parity.py", "chip_draws.py", "chip_c2.py"]
+    "script", ["chip_smoke.py", "chip_profile.py", "chip_parity.py", "chip_draws.py", "chip_c2.py", "chip_band.py"]
 )
 def test_chip_scripts_refuse_without_a_card(script):
     if torch.cuda.is_available():
