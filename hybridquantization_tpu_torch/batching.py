@@ -1,10 +1,12 @@
 """Mixed-resolution batch orchestration (NumPy copy).
 
-A verbatim copy of `hybridquantization_tpu/batching.py` below this
-paragraph: importing anything from the JAX package imports jax, which this
-package never does. `tests/test_torch_batch.py` pins the copy equal to the
-original. In this package a bucket is one batched anneal on one GPU
-(parallel.batch.BatchQuantizer), and n_data stays 1.
+A copy of `hybridquantization_tpu/batching.py` below this paragraph
+(importing anything from the JAX package imports jax, which this package
+never does) that adds spans (`metrics.span`) around each bucket, its
+stack and its scatter. `tests/test_torch_batch.py` pins the copy's
+behaviour equal to the original's. In this package a bucket is one
+batched anneal on one GPU (parallel.batch.BatchQuantizer), and n_data
+stays 1.
 
 BASELINE config 4 is "a batch of 64 mixed-resolution images": XLA needs
 static shapes, so images are grouped into same-resolution buckets and each
@@ -19,6 +21,8 @@ import collections
 from dataclasses import dataclass
 
 import numpy as np
+
+from .metrics import span
 
 
 @dataclass
@@ -56,9 +60,12 @@ def run_bucketed(images: list[np.ndarray], run_batch, n_data: int = 1):
     buckets = bucket_by_resolution(sizes)
     slots: list = [None] * len(images)
     for b in buckets:
-        padded, real = pad_indices(b.indices, n_data)
-        stack = np.stack([images[i] for i in padded])
-        outs = run_batch(stack)
-        for pos, orig_idx in enumerate(b.indices[:real]):
-            slots[orig_idx] = tuple(np.asarray(o[pos]) for o in outs)
+        with span("bucket"):
+            padded, real = pad_indices(b.indices, n_data)
+            with span("bucket.stack"):
+                stack = np.stack([images[i] for i in padded])
+            outs = run_batch(stack)
+            with span("bucket.scatter"):
+                for pos, orig_idx in enumerate(b.indices[:real]):
+                    slots[orig_idx] = tuple(np.asarray(o[pos]) for o in outs)
     return slots

@@ -1,69 +1,45 @@
-"""Observability: stage timers, throughput counters, profiler hooks.
+"""Observability: spans at the program's layer boundaries, profiler hooks.
 
 The counterpart of `hybridquantization_tpu/metrics.py`. The reference's
 observability was stdout wall-clock labels (HybridQuantization.addPerfLabel,
 HybridQuantization.java:259-263) and an every-10-iterations ETA
-(ImageManipulation.java:546-551). StageTimer keeps that style of label;
-Throughput counts Mpix/s and iterations/s; `profiler_trace` records a
-`torch.profiler` trace (host and, on a card, CUDA kernels) as a Chrome
-trace. PyTorch returns before the card finishes, so `synchronize` stands
-where the JAX package calls `block_until_ready`.
+(ImageManipulation.java:546-551). Here a `span` marks each layer boundary
+(the context, the seeding, an anneal step, a kernel wrapper, a bucket) as a
+profiler range named `hq.<name>`, so that it lies on the profiler's clock
+beside the CUDA kernel and memcpy events it caused; `profiler_trace`
+records such a trace (host and, on a card, CUDA activity) as a Chrome
+trace. PyTorch returns before the card finishes, so
+`synchronize` stands where the JAX package calls `block_until_ready`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from dataclasses import dataclass, field
 
 import torch
+from torch.autograd import profiler as _profiler
+
+#: the span of a run no profiler records: entering and leaving it does nothing
+_OFF = contextlib.nullcontext()
 
 
-@dataclass
-class StageTimer:
-    """Named stage wall-clock labels (addPerfLabel parity). Time work on a
-    card only up to a `synchronize()` inside the stage."""
+def span(name: str):
+    """A context manager around one stage of the program.
 
-    verbose: bool = True
-    stages: dict = field(default_factory=dict)
-    _t0: float = field(default_factory=time.time)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        start = time.time()
-        try:
-            yield
-        finally:
-            elapsed = time.time() - start
-            self.stages[name] = self.stages.get(name, 0.0) + elapsed
-            if self.verbose:
-                print(f"{name} : {elapsed * 1000:.0f}ms")
-
-    def total(self) -> float:
-        return time.time() - self._t0
-
-
-@dataclass
-class Throughput:
-    """Megapixels/s and iterations/s counters."""
-
-    pixels: int = 0
-    iterations: int = 0
-    seconds: float = 0.0
-
-    def add(self, pixels: int, iterations: int, seconds: float) -> None:
-        self.pixels += pixels
-        self.iterations += iterations
-        self.seconds += seconds
-
-    @property
-    def mpix_per_s(self) -> float:
-        return self.pixels / self.seconds / 1e6 if self.seconds else 0.0
-
-    @property
-    def iters_per_s(self) -> float:
-        return self.iterations / self.seconds if self.seconds else 0.0
+    With no `torch.profiler` recording it is a shared no-op: one check of
+    the profiler's flag, no torch op, no allocation, no synchronization.
+    While one records, it is a range named `hq.<name>` (torch's fast
+    record-function scope, without `record_function`'s dispatcher calls:
+    in a Chrome trace a "cpu_op" event beside the host's aten ops); the
+    span that encloses it on the host thread is its parent. It never waits
+    for the device: the device work a span caused is the work launched or
+    enqueued inside it (in the trace, the CUDA call of the same
+    correlation id).
+    """
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast("hq." + name)
 
 
 TRACE_FILE = "trace.json"
@@ -93,18 +69,3 @@ def synchronize() -> None:
     """Wait for all queued work on the current CUDA device (if there is one)."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-
-
-def timeit(fn, *args, warmup: int = 1, iters: int = 5) -> float:
-    """Median wall-clock seconds of fn(*args), each call synchronized."""
-    for _ in range(warmup):
-        fn(*args)
-        synchronize()
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn(*args)
-        synchronize()
-        times.append(time.perf_counter() - t0)
-    times.sort()
-    return times[len(times) // 2]

@@ -58,6 +58,7 @@ from __future__ import annotations
 import torch
 
 from ..config import PRECISIONS, TIE_MODES
+from ..metrics import span
 from . import _cuda
 
 DEFAULT_BLOCK = 1 << 16
@@ -229,51 +230,52 @@ def assign_opp_usage_pop(
       leading B of the inputs. A pixel whose scores are all NaN has no
       winner: opp 0, index -1, no count.
     """
-    _check(features, pal_feats, opp_palettes, precision, tie_mode)
-    if features.device.type == "cpu":
-        opp, counts, idx = assign_opp_usage_pop_reference(
-            features, pal_feats, opp_palettes, precision=precision, tie_mode=tie_mode
+    with span("b1"):
+        _check(features, pal_feats, opp_palettes, precision, tie_mode)
+        if features.device.type == "cpu":
+            opp, counts, idx = assign_opp_usage_pop_reference(
+                features, pal_feats, opp_palettes, precision=precision, tie_mode=tie_mode
+            )
+            return (opp, counts, idx) if return_index else (opp, counts)
+        if features.device.type != "cuda":
+            raise ValueError(f"unsupported device {features.device}")
+        batched = features.dim() == 3
+        if not batched:
+            features, pal_feats, opp_palettes = features[None], pal_feats[None], opp_palettes[None]
+        B, pop, K, _ = pal_feats.shape
+        P = features.shape[1]
+        features = features.contiguous()
+        pal_feats = pal_feats.contiguous()
+        opp_palettes = opp_palettes.contiguous()
+        dev = features.device
+        # scratch for the palettes packed once per call (JAX's pack_palette)
+        packed = torch.empty((B, pop, K, 4), dtype=torch.float32, device=dev)
+        opp = torch.empty((B, pop, 3, P), dtype=torch.float32, device=dev)
+        counts = torch.zeros((B, pop, K), dtype=torch.int32, device=dev)
+        idx = torch.empty((B, pop, P), dtype=torch.int32, device=dev) if return_index else None
+        lib = _cuda.library()
+        assign_opp_usage_pop.launches += 1
+        _cuda.check(
+            lib.hq_assign_pop(
+                features.data_ptr(),
+                pal_feats.data_ptr(),
+                opp_palettes.data_ptr(),
+                B,
+                P,
+                K,
+                pop,
+                int(precision == "bf16"),
+                int(tie_mode == "average"),
+                packed.data_ptr(),
+                opp.data_ptr(),
+                counts.data_ptr(),
+                idx.data_ptr() if idx is not None else None,
+                _cuda.stream(dev),
+            ),
+            "hq_assign_pop",
         )
-        return (opp, counts, idx) if return_index else (opp, counts)
-    if features.device.type != "cuda":
-        raise ValueError(f"unsupported device {features.device}")
-    batched = features.dim() == 3
-    if not batched:
-        features, pal_feats, opp_palettes = features[None], pal_feats[None], opp_palettes[None]
-    B, pop, K, _ = pal_feats.shape
-    P = features.shape[1]
-    features = features.contiguous()
-    pal_feats = pal_feats.contiguous()
-    opp_palettes = opp_palettes.contiguous()
-    dev = features.device
-    # scratch for the palettes packed once per call (JAX's pack_palette)
-    packed = torch.empty((B, pop, K, 4), dtype=torch.float32, device=dev)
-    opp = torch.empty((B, pop, 3, P), dtype=torch.float32, device=dev)
-    counts = torch.zeros((B, pop, K), dtype=torch.int32, device=dev)
-    idx = torch.empty((B, pop, P), dtype=torch.int32, device=dev) if return_index else None
-    lib = _cuda.library()
-    assign_opp_usage_pop.launches += 1
-    _cuda.check(
-        lib.hq_assign_pop(
-            features.data_ptr(),
-            pal_feats.data_ptr(),
-            opp_palettes.data_ptr(),
-            B,
-            P,
-            K,
-            pop,
-            int(precision == "bf16"),
-            int(tie_mode == "average"),
-            packed.data_ptr(),
-            opp.data_ptr(),
-            counts.data_ptr(),
-            idx.data_ptr() if idx is not None else None,
-            _cuda.stream(dev),
-        ),
-        "hq_assign_pop",
-    )
-    out = (opp, counts, idx) if return_index else (opp, counts)
-    return out if batched else tuple(t[0] for t in out)
+        out = (opp, counts, idx) if return_index else (opp, counts)
+        return out if batched else tuple(t[0] for t in out)
 
 
 #: launches of the CUDA kernel through this wrapper (not of the plain version)
@@ -346,24 +348,25 @@ def assign_idx(features: torch.Tensor, palettes: torch.Tensor) -> torch.Tensor:
       f . c_k - |c_k|^2 / 2; -1 for a pixel whose scores are all NaN. One
       launch for all F x M problems.
     """
-    feats, pals, _, batched = _problems(features, palettes)
-    if feats.device.type == "cpu":
-        return assign_idx_reference(features, palettes)
-    F, M, K, _ = pals.shape
-    P = feats.shape[1]
-    idx = torch.empty((F, M, P), dtype=torch.int32, device=feats.device)
-    if P > 0:
-        feats, pals = feats.contiguous(), pals.contiguous()
-        lib = _cuda.library()
-        assign_idx.launches += 1
-        _cuda.check(
-            lib.hq_assign_idx(
-                feats.data_ptr(), pals.data_ptr(), F, M, P, K, idx.data_ptr(),
-                _cuda.stream(feats.device),
-            ),
-            "hq_assign_idx",
-        )
-    return idx if batched else idx[0, 0]
+    with span("b3"):
+        feats, pals, _, batched = _problems(features, palettes)
+        if feats.device.type == "cpu":
+            return assign_idx_reference(features, palettes)
+        F, M, K, _ = pals.shape
+        P = feats.shape[1]
+        idx = torch.empty((F, M, P), dtype=torch.int32, device=feats.device)
+        if P > 0:
+            feats, pals = feats.contiguous(), pals.contiguous()
+            lib = _cuda.library()
+            assign_idx.launches += 1
+            _cuda.check(
+                lib.hq_assign_idx(
+                    feats.data_ptr(), pals.data_ptr(), F, M, P, K, idx.data_ptr(),
+                    _cuda.stream(feats.device),
+                ),
+                "hq_assign_idx",
+            )
+        return idx if batched else idx[0, 0]
 
 
 #: launches of the CUDA kernel through this wrapper (not of the plain version)
@@ -453,36 +456,37 @@ def lloyd_step(
       One launch for all problems up to LLOYD_MAX_K entries; above it the
       index mode and centroid_update, problem by problem.
     """
-    feats, pals, w, batched = _problems(features, palettes, weights)
-    if feats.device.type == "cpu":
-        return lloyd_step_reference(features, palettes, weights)
-    F, M, K, _ = pals.shape
-    P = feats.shape[1]
-    if P == 0:
-        return palettes.clone()
-    feats, pals = feats.contiguous(), pals.contiguous()
-    if K > LLOYD_MAX_K:
-        lloyd_step.unfused_launches += 1
-        idx = assign_idx(feats, pals)
-        out = torch.stack([
-            torch.stack([centroid_update(f, i, p, wf) for i, p in zip(idxs, ps)])
-            for f, idxs, ps, wf in zip(feats, idx, pals, [None] * F if w is None else w)
-        ])
+    with span("b3"):
+        feats, pals, w, batched = _problems(features, palettes, weights)
+        if feats.device.type == "cpu":
+            return lloyd_step_reference(features, palettes, weights)
+        F, M, K, _ = pals.shape
+        P = feats.shape[1]
+        if P == 0:
+            return palettes.clone()
+        feats, pals = feats.contiguous(), pals.contiguous()
+        if K > LLOYD_MAX_K:
+            lloyd_step.unfused_launches += 1
+            idx = assign_idx(feats, pals)
+            out = torch.stack([
+                torch.stack([centroid_update(f, i, p, wf) for i, p in zip(idxs, ps)])
+                for f, idxs, ps, wf in zip(feats, idx, pals, [None] * F if w is None else w)
+            ])
+            return out if batched else out[0, 0]
+        w = None if w is None else w.contiguous()
+        blocks, per_block = lloyd_plan(P)
+        partials = torch.empty((F, M, blocks, K, 4), dtype=torch.float64, device=feats.device)
+        out = torch.empty_like(pals)
+        lib = _cuda.library()
+        lloyd_step.launches += 1
+        _cuda.check(
+            lib.hq_lloyd_step(
+                feats.data_ptr(), None if w is None else w.data_ptr(), pals.data_ptr(), F, M, P, K,
+                blocks, per_block, partials.data_ptr(), out.data_ptr(), _cuda.stream(feats.device),
+            ),
+            "hq_lloyd_step",
+        )
         return out if batched else out[0, 0]
-    w = None if w is None else w.contiguous()
-    blocks, per_block = lloyd_plan(P)
-    partials = torch.empty((F, M, blocks, K, 4), dtype=torch.float64, device=feats.device)
-    out = torch.empty_like(pals)
-    lib = _cuda.library()
-    lloyd_step.launches += 1
-    _cuda.check(
-        lib.hq_lloyd_step(
-            feats.data_ptr(), None if w is None else w.data_ptr(), pals.data_ptr(), F, M, P, K,
-            blocks, per_block, partials.data_ptr(), out.data_ptr(), _cuda.stream(feats.device),
-        ),
-        "hq_lloyd_step",
-    )
-    return out if batched else out[0, 0]
 
 
 #: launches of the fused CUDA kernel through this wrapper (not of the plain

@@ -66,6 +66,7 @@ import torch
 
 from .. import colorspace as cs
 from ..config import DELTA_E_KINDS, PRECISIONS
+from ..metrics import span
 from ..scielab.transform import SRC7
 from . import _cuda
 from .assign_kernel import bf16_round
@@ -409,67 +410,68 @@ def fused_scielab_err_sums(
     up to MAX_FUSED_TAPS taps and in the two-pass kernels above; every
     CUDA launch takes one of the hand-written kernels, or raises.
     """
-    _check(q, target, kh, kv, deltaE, precision, left_slab, right_slab)
-    if q.device.type == "cpu":
-        return fused_scielab_err_sums_reference(
-            q, target, kh, kv, whitepoint, deltaE, precision=precision,
-            left_slab=left_slab, right_slab=right_slab,
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    *lead, pop, _, H, W = q.shape
-    members = pop * (lead[0] if lead else 1)
-    taps = kh.shape[1]
-    if taps > MAX_TAPS:
-        raise ValueError(f"{taps} taps exceed the kernel's {MAX_TAPS}")
-    q, target, kh, kv = (t.contiguous() for t in (q, target, kh, kv))
-    slabs = left_slab is not None
-    if slabs:
-        left_slab, right_slab = left_slab.contiguous(), right_slab.contiguous()
-    wp = [float(v) for v in whitepoint]
-    mode = MODES[precision]
-    bands = cached_band_tables(kh, kv) if mode == MODES["split"] and taps <= MAX_FUSED_TAPS else None
-    plan = fused_plan(H, W, taps, split=mode == MODES["split"], vtables=bands.vtables if bands else 1)
-    path = plan["path"]
-    lib = _cuda.library()
-    dev = q.device
-    partials = torch.empty((members, plan["partials"]), dtype=torch.float32, device=dev)
-    sums = torch.empty((*lead, pop), dtype=torch.float32, device=dev)
-    guards = (left_slab.data_ptr(), right_slab.data_ptr()) if slabs else (None, None)
-    fused_scielab_err_sums.launches += 1
-    fused_scielab_err_sums.slab_launches += slabs
-    fused_scielab_err_sums.two_pass_launches += path == "two_pass"
-    fused_scielab_err_sums.split_launches += mode == MODES["split"]
-    fused_scielab_err_sums.band_launches += path == "band"
-    if path == "band":
+    with span("b2"):
+        _check(q, target, kh, kv, deltaE, precision, left_slab, right_slab)
+        if q.device.type == "cpu":
+            return fused_scielab_err_sums_reference(
+                q, target, kh, kv, whitepoint, deltaE, precision=precision,
+                left_slab=left_slab, right_slab=right_slab,
+            )
+        if q.device.type != "cuda":
+            raise ValueError(f"unsupported device {q.device}")
+        *lead, pop, _, H, W = q.shape
+        members = pop * (lead[0] if lead else 1)
+        taps = kh.shape[1]
+        if taps > MAX_TAPS:
+            raise ValueError(f"{taps} taps exceed the kernel's {MAX_TAPS}")
+        q, target, kh, kv = (t.contiguous() for t in (q, target, kh, kv))
+        slabs = left_slab is not None
+        if slabs:
+            left_slab, right_slab = left_slab.contiguous(), right_slab.contiguous()
+        wp = [float(v) for v in whitepoint]
+        mode = MODES[precision]
+        bands = cached_band_tables(kh, kv) if mode == MODES["split"] and taps <= MAX_FUSED_TAPS else None
+        plan = fused_plan(H, W, taps, split=mode == MODES["split"], vtables=bands.vtables if bands else 1)
+        path = plan["path"]
+        lib = _cuda.library()
+        dev = q.device
+        partials = torch.empty((members, plan["partials"]), dtype=torch.float32, device=dev)
+        sums = torch.empty((*lead, pop), dtype=torch.float32, device=dev)
+        guards = (left_slab.data_ptr(), right_slab.data_ptr()) if slabs else (None, None)
+        fused_scielab_err_sums.launches += 1
+        fused_scielab_err_sums.slab_launches += slabs
+        fused_scielab_err_sums.two_pass_launches += path == "two_pass"
+        fused_scielab_err_sums.split_launches += mode == MODES["split"]
+        fused_scielab_err_sums.band_launches += path == "band"
+        if path == "band":
+            _cuda.check(
+                lib.hq_band_err_sums(
+                    q.data_ptr(), *guards, target.data_ptr(), bands.cores.data_ptr(),
+                    ctypes.addressof(bands.vmap), bands.vtables,
+                    taps, members, pop, H, W, wp[0], wp[1], wp[2], DELTA_E_KINDS.index(deltaE),
+                    plan["rows_per_block"], plan["smem_bytes"], plan["partials"], partials.data_ptr(),
+                    sums.data_ptr(), _cuda.stream(dev),
+                ),
+                "hq_band_err_sums",
+            )
+            return sums
+        fused = path == "fused"
+        param = None
+        if fused and taps == DEFAULT_TAPS:
+            param = (taps_on_host or kernel_taps(kh, kv))[mode]
+        # the two-pass path's intermediate; the fused kernel keeps it on the SM
+        t7 = None if fused else torch.empty((members, 7, H, W), dtype=torch.float32, device=dev)
         _cuda.check(
-            lib.hq_band_err_sums(
-                q.data_ptr(), *guards, target.data_ptr(), bands.cores.data_ptr(),
-                ctypes.addressof(bands.vmap), bands.vtables,
-                taps, members, pop, H, W, wp[0], wp[1], wp[2], DELTA_E_KINDS.index(deltaE),
-                plan["rows_per_block"], plan["smem_bytes"], plan["partials"], partials.data_ptr(),
-                sums.data_ptr(), _cuda.stream(dev),
+            lib.hq_fused_err_sums(
+                q.data_ptr(), *guards, target.data_ptr(), kh.data_ptr(), kv.data_ptr(),
+                ctypes.addressof(param) if param is not None else None, taps, members, pop, H, W,
+                wp[0], wp[1], wp[2], DELTA_E_KINDS.index(deltaE), mode, plan["rows_per_block"],
+                plan["smem_bytes"], plan["partials"], t7.data_ptr() if t7 is not None else None,
+                partials.data_ptr(), sums.data_ptr(), _cuda.stream(dev),
             ),
-            "hq_band_err_sums",
+            "hq_fused_err_sums",
         )
         return sums
-    fused = path == "fused"
-    param = None
-    if fused and taps == DEFAULT_TAPS:
-        param = (taps_on_host or kernel_taps(kh, kv))[mode]
-    # the two-pass path's intermediate; the fused kernel keeps it on the SM
-    t7 = None if fused else torch.empty((members, 7, H, W), dtype=torch.float32, device=dev)
-    _cuda.check(
-        lib.hq_fused_err_sums(
-            q.data_ptr(), *guards, target.data_ptr(), kh.data_ptr(), kv.data_ptr(),
-            ctypes.addressof(param) if param is not None else None, taps, members, pop, H, W,
-            wp[0], wp[1], wp[2], DELTA_E_KINDS.index(deltaE), mode, plan["rows_per_block"],
-            plan["smem_bytes"], plan["partials"], t7.data_ptr() if t7 is not None else None,
-            partials.data_ptr(), sums.data_ptr(), _cuda.stream(dev),
-        ),
-        "hq_fused_err_sums",
-    )
-    return sums
 
 
 #: launches of the CUDA kernels through this wrapper (not of the plain version)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ..metrics import span
 from .assign_kernel import centroid_update, lloyd_step
 
 
@@ -141,14 +142,15 @@ def kmeans_init_palettes(
     draws of the member-by-member loop, since no Lloyd step draws), then
     the `iters` steps run over all of them at once, one launch a step.
     """
-    counts, centers = color_histogram(pixels, bits)
-    batched = pixels.dim() == 3
-    gens = tuple(generator) if batched else (generator,)
-    if not batched:
-        counts, centers = counts[None], centers[None]
-    starts = torch.stack([
-        torch.stack([c[weighted_start(g, n, num_colors)] for _ in range(population)])
-        for g, n, c in zip(gens, counts, centers, strict=True)
-    ])
-    out = lloyd_steps_weighted(counts, centers, starts, iters)
-    return out if batched else out[0]
+    with span("seeding"):
+        counts, centers = color_histogram(pixels, bits)
+        batched = pixels.dim() == 3
+        gens = tuple(generator) if batched else (generator,)
+        if not batched:
+            counts, centers = counts[None], centers[None]
+        starts = torch.stack([
+            torch.stack([c[weighted_start(g, n, num_colors)] for _ in range(population)])
+            for g, n, c in zip(gens, counts, centers, strict=True)
+        ])
+        out = lloyd_steps_weighted(counts, centers, starts, iters)
+        return out if batched else out[0]

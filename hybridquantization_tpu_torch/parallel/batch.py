@@ -35,6 +35,7 @@ import torch
 
 from .. import colorspace as cs
 from ..config import QuantizationConfig
+from ..metrics import span
 from ..ops import assign as assign_ops
 from ..ops.kmeans import kmeans_init_palettes
 from ..pipeline import (
@@ -100,7 +101,9 @@ def _anneal(state, fitness, cfg: QuantizationConfig, progress, chunk_size, batch
                 "best_error_mean": float(batch_mean(telemetry["best_error"][-1])),
                 "eta_s": elapsed / done * (imax - done),
             }
-            if agree(progress(done, imax, stats) is False):
+            with span("progress"):
+                go_on = progress(done, imax, stats)
+            if agree(go_on is False):
                 break
     telemetry = {k: np.concatenate([t[k] for t in traj]) for k in traj[0]} if traj else {}
     return state, done, time.time() - start, telemetry
@@ -146,51 +149,55 @@ class BatchQuantizer:
         "iterations", "seconds", "telemetry" ((iterations, B) arrays),
         "state".
         """
-        cfg = self.config
-        images = self._images(images)
-        seeds = _seeds(seeds, images.shape[0], cfg)
-        generators = tuple(torch.Generator(device=self.device).manual_seed(s) for s in seeds)
-        init_colors = _init_colors(generators, images, cfg)
-        fitness = make_population_fitness(
-            _make_batch_context(images, self.filters, cfg, self.device), cfg
-        )
-        state = swasa_loop.init_state(generators, fitness, cfg.swasa, init_colors)
-        state, done, seconds, telemetry = _anneal(state, fitness, cfg, progress, chunk_size)
-        info = {
-            "best_errors": state.best_error.cpu().numpy(),
-            "iterations": done,
-            "seconds": seconds,
-            "telemetry": telemetry,
-            "state": state,
-        }
-        return state.best_colors, info
+        with span("batch.find_palettes"):
+            cfg = self.config
+            images = self._images(images)
+            seeds = _seeds(seeds, images.shape[0], cfg)
+            generators = tuple(torch.Generator(device=self.device).manual_seed(s) for s in seeds)
+            init_colors = _init_colors(generators, images, cfg)
+            fitness = make_population_fitness(
+                _make_batch_context(images, self.filters, cfg, self.device), cfg
+            )
+            state = swasa_loop.init_state(generators, fitness, cfg.swasa, init_colors)
+            state, done, seconds, telemetry = _anneal(state, fitness, cfg, progress, chunk_size)
+            info = {
+                "best_errors": state.best_error.cpu().numpy(),
+                "iterations": done,
+                "seconds": seconds,
+                "telemetry": telemetry,
+                "state": state,
+            }
+            return state.best_colors, info
 
     def quantize(self, images, palettes) -> torch.Tensor:
         """(B, H, W, 3): each image through its own palette, one B3 launch
         for the bucket (HybridQuantizer.quantize without dither)."""
-        images = self._images(images)
-        return assign_ops.quantize_in_space(
-            images, as_image(palettes, self.device), self.config.assignment_space,
-            self.engine._whitepoint,
-        )
+        with span("batch.quantize"):
+            images = self._images(images)
+            return assign_ops.quantize_in_space(
+                images, as_image(palettes, self.device), self.config.assignment_space,
+                self.engine._whitepoint,
+            )
 
     def polish(self, images, palettes, iters: int = 10) -> torch.Tensor:
         """Each image's Lloyd refinement (HybridQuantizer.polish), one B3
         launch a step for the bucket."""
-        images = self._images(images)
-        return assign_ops.polish_palette(
-            images.reshape(images.shape[0], -1, 3), as_image(palettes, self.device),
-            self.config.assignment_space, self.engine._whitepoint, iters,
-        )
+        with span("batch.polish"):
+            images = self._images(images)
+            return assign_ops.polish_palette(
+                images.reshape(images.shape[0], -1, 3), as_image(palettes, self.device),
+                self.config.assignment_space, self.engine._whitepoint, iters,
+            )
 
     def error_images(self, originals, quantized):
         """((B,) mean S-CIELAB Delta-E, (B, H, W, 3) viz): the reference's
         error-image mode (HybridQuantization.java:139-182) per image."""
-        originals, quantized = self._images(originals), self._images(quantized)
-        if originals.shape != quantized.shape:
-            raise ValueError(f"shape mismatch {tuple(originals.shape)} vs {tuple(quantized.shape)}")
-        means, vizs = zip(*(self.engine.error_image(o, q) for o, q in zip(originals, quantized)))
-        return torch.stack(means), torch.stack(vizs)
+        with span("batch.error_images"):
+            originals, quantized = self._images(originals), self._images(quantized)
+            if originals.shape != quantized.shape:
+                raise ValueError(f"shape mismatch {tuple(originals.shape)} vs {tuple(quantized.shape)}")
+            means, vizs = zip(*(self.engine.error_image(o, q) for o, q in zip(originals, quantized)))
+            return torch.stack(means), torch.stack(vizs)
 
     def run(self, images, seeds=None, progress: ProgressFn | None = None, polish_iters: int = 0):
         """find_palettes + optional Lloyd polish + quantize.

@@ -31,6 +31,7 @@ import torch
 from . import colorspace as cs
 from .checkpoint import save_state
 from .config import QuantizationConfig
+from .metrics import span
 from .ops import assign as assign_ops
 from .ops.assign_kernel import assign_opp_usage_pop
 from .ops.fused_fitness import fused_scielab_err_sums, kernel_taps
@@ -61,10 +62,15 @@ def setup_device(device) -> torch.device:
 
 
 def as_image(image_hwc, device) -> torch.Tensor:
-    """A numpy array or tensor as a float32 tensor on `device`."""
-    if isinstance(image_hwc, torch.Tensor):
-        return image_hwc.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(image_hwc, np.float32), device=device)
+    """A numpy array or tensor as a float32 tensor on `device`; a copy from
+    host memory to another device is the span `upload`."""
+    device = torch.device(device)
+    if not isinstance(image_hwc, torch.Tensor):
+        image_hwc = torch.from_numpy(np.asarray(image_hwc, np.float32))
+    if image_hwc.device.type == "cpu" and device.type != "cpu":
+        with span("upload"):
+            return image_hwc.to(device=device, dtype=torch.float32)
+    return image_hwc.to(device=device, dtype=torch.float32)
 
 
 def _features(pixels: torch.Tensor, cfg: QuantizationConfig, wp) -> torch.Tensor:
@@ -75,23 +81,24 @@ def _make_context(
     image_hwc, filters: ScielabFilters, cfg: QuantizationConfig, device="cuda"
 ) -> dict:
     """Device-resident per-image constants for the fitness function."""
-    device = torch.device(device)
-    wp = cs.WHITEPOINTS[cfg.scielab.whitepoint]
-    image = as_image(image_hwc, device)
-    kh = sct.stacked_kernels(filters, vertical=False, device=device)
-    kv = sct.stacked_kernels(filters, vertical=True, device=device)
-    opp = cs.xyz_to_opp(cs.srgb_to_xyz(image))
-    filtered = sct.scielab_filter_stacked(torch.movedim(opp, -1, 0), kh, kv)
-    target_lab = cs.opp_to_lab(torch.movedim(filtered, 0, -1), wp)
-    return {
-        "assign_pixels": _features(image.reshape(-1, 3), cfg, wp).contiguous(),
-        "target_lab": target_lab,                                    # (H, W, 3)
-        "target_planar": torch.movedim(target_lab, -1, 0).contiguous(),  # (3, H, W)
-        "kh": kh,
-        "kv": kv,
-        "taps_on_host": kernel_taps(kh, kv),  # B2's coefficient parameter
-        "whitepoint": tuple(float(v) for v in wp),
-    }
+    with span("context"):
+        device = torch.device(device)
+        wp = cs.WHITEPOINTS[cfg.scielab.whitepoint]
+        image = as_image(image_hwc, device)
+        kh = sct.stacked_kernels(filters, vertical=False, device=device)
+        kv = sct.stacked_kernels(filters, vertical=True, device=device)
+        opp = cs.xyz_to_opp(cs.srgb_to_xyz(image))
+        filtered = sct.scielab_filter_stacked(torch.movedim(opp, -1, 0), kh, kv)
+        target_lab = cs.opp_to_lab(torch.movedim(filtered, 0, -1), wp)
+        return {
+            "assign_pixels": _features(image.reshape(-1, 3), cfg, wp).contiguous(),
+            "target_lab": target_lab,                                    # (H, W, 3)
+            "target_planar": torch.movedim(target_lab, -1, 0).contiguous(),  # (3, H, W)
+            "kh": kh,
+            "kv": kv,
+            "taps_on_host": kernel_taps(kh, kv),  # B2's coefficient parameter
+            "whitepoint": tuple(float(v) for v in wp),
+        }
 
 
 def _make_batch_context(
@@ -195,7 +202,8 @@ class HybridQuantizer:
 
     def scielab(self, image_hwc) -> torch.Tensor:
         """sRGB (H, W, 3) -> S-CIELAB (H, W, 3)."""
-        return sct.srgb_to_scielab(self._as_image(image_hwc), self.filters, self._whitepoint)
+        with span("scielab"):
+            return sct.srgb_to_scielab(self._as_image(image_hwc), self.filters, self._whitepoint)
 
     # -- Optimization -------------------------------------------------------
 
@@ -221,65 +229,68 @@ class HybridQuantizer:
         checkpoint.load_state) resumes a run; `checkpoint_path` writes the
         state atomically every `checkpoint_every` iterations.
         """
-        cfg = self.config
-        chunk = chunk_size or cfg.progress_every
-        image = self._as_image(image_hwc)
-        ctx = _make_context(image, self.filters, cfg, self.device)
-        fitness = make_population_fitness(ctx, cfg)
-        if initial_state is not None:
-            state = initial_state
-        else:
-            if generator is None:
-                generator = torch.Generator(device=self.device)
-                generator.manual_seed(cfg.seed)
-            init_colors = None
-            if cfg.init == "kmeans":
-                init_colors = kmeans_init_palettes(
-                    generator, image.reshape(-1, 3), cfg.swasa.num_colors, cfg.swasa.population
-                )
-            state = swasa_loop.init_state(generator, fitness, cfg.swasa, init_colors)
+        with span("find_palette"):
+            cfg = self.config
+            chunk = chunk_size or cfg.progress_every
+            image = self._as_image(image_hwc)
+            ctx = _make_context(image, self.filters, cfg, self.device)
+            fitness = make_population_fitness(ctx, cfg)
+            if initial_state is not None:
+                state = initial_state
+            else:
+                if generator is None:
+                    generator = torch.Generator(device=self.device)
+                    generator.manual_seed(cfg.seed)
+                init_colors = None
+                if cfg.init == "kmeans":
+                    init_colors = kmeans_init_palettes(
+                        generator, image.reshape(-1, 3), cfg.swasa.num_colors, cfg.swasa.population
+                    )
+                state = swasa_loop.init_state(generator, fitness, cfg.swasa, init_colors)
 
-        imax = cfg.swasa.imax
-        traj = []
-        start = time.time()
-        done = int(state.iteration)
-        resumed_at = done
-        last_ckpt = done
-        while done < imax:
-            n = min(chunk, imax - done)
-            state, telemetry = swasa_loop.run_chunk(state, fitness, cfg.swasa, n)
-            done += n
-            if checkpoint_path and done - last_ckpt >= checkpoint_every:
-                save_state(checkpoint_path, state)
-                last_ckpt = done
-            traj.append(telemetry)
+            imax = cfg.swasa.imax
+            traj = []
+            start = time.time()
+            done = int(state.iteration)
+            resumed_at = done
+            last_ckpt = done
+            while done < imax:
+                n = min(chunk, imax - done)
+                state, telemetry = swasa_loop.run_chunk(state, fitness, cfg.swasa, n)
+                done += n
+                if checkpoint_path and done - last_ckpt >= checkpoint_every:
+                    save_state(checkpoint_path, state)
+                    last_ckpt = done
+                traj.append(telemetry)
+                if cfg.verbose:
+                    # population stats parity (ImageManipulation.java:552-565)
+                    print(
+                        f"iter {done}/{imax}  best {telemetry['best_error'][-1]:.5f}"
+                        f"  Population:  Mean : {telemetry['mean_error'][-1]:.4f}"
+                        f"  Best : {telemetry['min_error'][-1]:.4f}"
+                        f"  Std. Dev. : {telemetry['std_error'][-1]:.4f}"
+                    )
+                if progress is not None:
+                    elapsed = time.time() - start
+                    last = {k: float(v[-1]) for k, v in telemetry.items()}
+                    last["eta_s"] = elapsed / max(done - resumed_at, 1) * (imax - done)
+                    with span("progress"):
+                        go_on = progress(done, imax, last)
+                    if go_on is False:
+                        break  # cooperative stop (reference stopFlag semantics)
+
+            info = {
+                "best_error": float(state.best_error),
+                "iterations": done,
+                "telemetry": {k: np.concatenate([t[k] for t in traj]) for k in traj[0]}
+                if traj
+                else {},
+                "state": state,
+                "seconds": time.time() - start,
+            }
             if cfg.verbose:
-                # population stats parity (ImageManipulation.java:552-565)
-                print(
-                    f"iter {done}/{imax}  best {telemetry['best_error'][-1]:.5f}"
-                    f"  Population:  Mean : {telemetry['mean_error'][-1]:.4f}"
-                    f"  Best : {telemetry['min_error'][-1]:.4f}"
-                    f"  Std. Dev. : {telemetry['std_error'][-1]:.4f}"
-                )
-            if progress is not None:
-                elapsed = time.time() - start
-                last = {k: float(v[-1]) for k, v in telemetry.items()}
-                last["eta_s"] = elapsed / max(done - resumed_at, 1) * (imax - done)
-                if progress(done, imax, last) is False:
-                    break  # cooperative stop (reference stopFlag semantics)
-
-        info = {
-            "best_error": float(state.best_error),
-            "iterations": done,
-            "telemetry": {k: np.concatenate([t[k] for t in traj]) for k in traj[0]}
-            if traj
-            else {},
-            "state": state,
-            "seconds": time.time() - start,
-        }
-        if cfg.verbose:
-            print(f"Final error : {info['best_error']:.5f}")
-        return state.best_colors, info
+                print(f"Final error : {info['best_error']:.5f}")
+            return state.best_colors, info
 
     # -- Palette refinement ---------------------------------------------------
 
@@ -295,13 +306,14 @@ class HybridQuantizer:
         fitness is the spatial S-CIELAB Delta-E, a different objective:
         compare with error_image when it matters.
         """
-        return assign_ops.polish_palette(
-            self._as_image(image_hwc).reshape(-1, 3),
-            self._as_image(palette),
-            self.config.assignment_space,
-            self._whitepoint,
-            iters,
-        )
+        with span("polish"):
+            return assign_ops.polish_palette(
+                self._as_image(image_hwc).reshape(-1, 3),
+                self._as_image(palette),
+                self.config.assignment_space,
+                self._whitepoint,
+                iters,
+            )
 
     # -- Quantize / error image --------------------------------------------
 
@@ -314,13 +326,14 @@ class HybridQuantizer:
         The perturbation is in sRGB; the assignment still uses the
         configured space.
         """
-        image = self._as_image(image_hwc)
-        pal = self._as_image(palette)
-        if dither > 0.0:
-            image = assign_ops.dither_perturbation(image, pal, dither)
-        return assign_ops.quantize_in_space(
-            image, pal, self.config.assignment_space, self._whitepoint
-        )
+        with span("quantize"):
+            image = self._as_image(image_hwc)
+            pal = self._as_image(palette)
+            if dither > 0.0:
+                image = assign_ops.dither_perturbation(image, pal, dither)
+            return assign_ops.quantize_in_space(
+                image, pal, self.config.assignment_space, self._whitepoint
+            )
 
     def error_image(self, original_hwc, quantized_hwc):
         """(mean S-CIELAB Delta-E, (H, W, 3) visualization).
@@ -329,11 +342,12 @@ class HybridQuantizer:
         ImageManipulation.computeError (:858-894), including the
         ((255 - e)^2) / 255^2 visualization mapping (:890).
         """
-        e = cs.DELTA_E_FNS[self.config.deltaE](
-            self.scielab(original_hwc), self.scielab(quantized_hwc)
-        )
-        viz = ((255.0 - e) ** 2) / (255.0**2)
-        return torch.mean(e), viz[..., None].expand(*viz.shape, 3)
+        with span("error_image"):
+            e = cs.DELTA_E_FNS[self.config.deltaE](
+                self.scielab(original_hwc), self.scielab(quantized_hwc)
+            )
+            viz = ((255.0 - e) ** 2) / (255.0**2)
+            return torch.mean(e), viz[..., None].expand(*viz.shape, 3)
 
     # -- Full flow ----------------------------------------------------------
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config import SWASAConfig
+from ..metrics import span
 from . import schedule
 from .state import SWASAState
 
@@ -74,22 +75,23 @@ def init_state(
     the reference's uniform-random init (SWASA.java:40-52) drawn from
     `generator`.
     """
-    dev = _device(generator)
-    if init_colors is not None:
-        colors = torch.as_tensor(init_colors, dtype=torch.float32, device=dev)
-    else:
-        colors = schedule.random_palettes(generator, cfg.population, cfg.num_colors)
-    errors, _ = fitness(colors)
-    best = torch.argmin(errors, dim=-1)
-    return SWASAState(
-        colors=colors,
-        current_errors=errors,
-        best_colors=_pick(colors, best),
-        best_error=_pick(errors, best),
-        temperature=torch.full(errors.shape[:-1], cfg.t0, dtype=torch.float32, device=dev),
-        iteration=torch.tensor(0, dtype=torch.int32, device=dev),
-        generator=generator,
-    )
+    with span("init"):
+        dev = _device(generator)
+        if init_colors is not None:
+            colors = torch.as_tensor(init_colors, dtype=torch.float32, device=dev)
+        else:
+            colors = schedule.random_palettes(generator, cfg.population, cfg.num_colors)
+        errors, _ = fitness(colors)
+        best = torch.argmin(errors, dim=-1)
+        return SWASAState(
+            colors=colors,
+            current_errors=errors,
+            best_colors=_pick(colors, best),
+            best_error=_pick(errors, best),
+            temperature=torch.full(errors.shape[:-1], cfg.t0, dtype=torch.float32, device=dev),
+            iteration=torch.tensor(0, dtype=torch.int32, device=dev),
+            generator=generator,
+        )
 
 
 def make_step(fitness: PopFitnessFn, cfg: SWASAConfig):
@@ -165,11 +167,14 @@ def run_chunk(state: SWASAState, fitness: PopFitnessFn, cfg: SWASAConfig, num_it
     Returns (new_state, telemetry dict of (num_iters,) numpy arrays, or
     (num_iters, B) for a bucket), the telemetry copied to the host once.
     """
-    step = make_step(fitness, cfg)
-    ites = state.iteration + 1 + torch.arange(num_iters, dtype=torch.int32, device=state.iteration.device)
-    rows = []
-    for i in range(num_iters):
-        state, t = step(state, ites[i])
-        rows.append(t)
-    tele = torch.stack(rows).cpu().numpy()
+    with span("anneal.chunk"):
+        step = make_step(fitness, cfg)
+        ites = state.iteration + 1 + torch.arange(num_iters, dtype=torch.int32, device=state.iteration.device)
+        rows = []
+        for i in range(num_iters):
+            with span("anneal.step"):
+                state, t = step(state, ites[i])
+            rows.append(t)
+        with span("anneal.readback"):  # where the host waits for the device
+            tele = torch.stack(rows).cpu().numpy()
     return state, {k: np.ascontiguousarray(tele[..., j]) for j, k in enumerate(TELEMETRY)}

@@ -11,7 +11,6 @@ import torch
 
 from hybridquantization_tpu.cli import main as jmain
 from hybridquantization_tpu_torch import io as tio
-from hybridquantization_tpu_torch import metrics
 from hybridquantization_tpu_torch.cli import main
 from hybridquantization_tpu_torch.synth import natural_image
 
@@ -116,21 +115,3 @@ def test_default_device_is_the_card(ppm, tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["error", str(ppm), str(ppm), "--out", str(tmp_path / "e.ppm")])
-
-
-def test_metrics_timers_and_counters(capsys):
-    timer = metrics.StageTimer()
-    with timer.stage("assign"):
-        pass
-    with timer.stage("assign"):
-        pass
-    assert set(timer.stages) == {"assign"} and timer.stages["assign"] >= 0
-    assert capsys.readouterr().out.count("assign : ") == 2
-    assert timer.total() >= timer.stages["assign"]
-    tp = metrics.Throughput()
-    assert tp.mpix_per_s == 0.0 and tp.iters_per_s == 0.0
-    tp.add(2_000_000, 10, 2.0)
-    assert tp.mpix_per_s == pytest.approx(1.0) and tp.iters_per_s == pytest.approx(5.0)
-    calls = []
-    assert metrics.timeit(lambda x: calls.append(x), 3, warmup=2, iters=3) >= 0
-    assert calls == [3] * 5
