@@ -78,11 +78,12 @@ CONV_PRECISIONS = PRECISIONS + ("split",)
 #: the kernel's mode for each: 0 fp32, 1 bf16, 2 split (csrc/fused_fitness.cu Mode)
 MODES = {"highest": 0, "f32x3": 0, "bf16": 1, "split": 2}
 # The fused kernel's layout (csrc/fused_fitness.cu, whose kTileW, kTileH,
-# kDefaultTaps, kMaxSmem, stage_width and ring_groups these mirror): 32-column
-# strips, rows staged, filtered and output 32 at a time, a segment of up to
-# ROWS_PER_BLOCK rows per block (faster than 32-row tiles on the H100,
-# PERF.md); at DEFAULT_TAPS the coefficients travel as a kernel parameter
-# (FMA operands), at other taps through shared memory.
+# kDefaultTaps, kMaxSmem, stage_lead, stage_width, ring_groups and the
+# ring's overhang these mirror): 32-column strips, rows staged,
+# filtered and output 32 at a time, a segment of up to ROWS_PER_BLOCK rows
+# per block (faster than 32-row tiles on the H100, PERF.md); at DEFAULT_TAPS
+# the coefficients travel as a kernel parameter (FMA operands), at other taps
+# through shared memory.
 TILE_W = TILE_H = 32
 ROWS_PER_BLOCK = 512
 DEFAULT_TAPS = 21  # scielab.filters.build_filters at 72 dpi, 45 cm
@@ -106,15 +107,23 @@ BAND_TAIL = 8  # a tap's hi part under 2^-BAND_TAIL of its filter's largest is i
 
 
 def fused_smem_bytes(taps: int) -> int:
-    """Shared memory of the fused kernel: two staging buffers of 32 rows x 3
-    channels x (32 + 2 half, to a multiple of 4) columns, a ring of
-    1 + ceil((taps - 1) / 32) groups of 32 rows x 7 channels x 32 columns,
-    and, except at DEFAULT_TAPS, the two coefficient stacks, (taps, 8) each."""
+    """Shared memory of the fused kernel: staging buffers of 32 rows x 3
+    channels x (32 + 2 lead) columns, lead = half rounded up to a multiple of
+    4 (one buffer at DEFAULT_TAPS, two at other taps); a ring of
+    1 + ceil((taps - 1) / 32) groups of 32 rows x 7 channels x 32 columns, at
+    DEFAULT_TAPS with taps - 1 rows more (a copy of its first rows, so that
+    every window is contiguous); and, except at DEFAULT_TAPS, the two
+    coefficient stacks, (taps + lead - half, 8) and (taps, 8)."""
     half = taps // 2
-    stage_w = -(-(TILE_W + 2 * half) // 4) * 4
-    ring_groups = 1 + (TILE_H + 2 * half - 1) // TILE_H
-    coeffs = 0 if taps == DEFAULT_TAPS else 16 * taps
-    return 4 * (2 * 3 * TILE_H * stage_w + ring_groups * TILE_H * 7 * TILE_W + coeffs)
+    lead = -(-half // 4) * 4
+    stage_w = TILE_W + 2 * lead
+    ring_rows = (1 + (TILE_H + 2 * half - 1) // TILE_H) * TILE_H
+    if taps == DEFAULT_TAPS:
+        stages, coeffs = 1, 0
+        ring_rows += taps - 1
+    else:
+        stages, coeffs = 2, 8 * (2 * taps + lead - half)
+    return 4 * (stages * 3 * TILE_H * stage_w + ring_rows * 7 * TILE_W + coeffs)
 
 
 def band_steps(taps: int) -> int:

@@ -195,3 +195,19 @@ def test_kernel_taps_hold_the_default_stacks_once_in_the_context(bf16):
     assert list(ctx["taps_on_host"][bf16]) == list(got)
     wide = build_filters(150, 45.0)
     assert ff.kernel_taps(stacked_kernels(wide, False), stacked_kernels(wide, True)) is None
+
+
+def test_fused_plan_mirrors_the_kernels_shared_layout():
+    """fused_smem_bytes is csrc/fused_fitness.cu's layout: at 21 taps one
+    staging buffer of 3 x 32 rows x (32 + 2 x 12) columns and a ring of 2 x
+    32 + 20 rows of 7 x 32 floats (no stacks: the coefficients are a kernel
+    parameter); at other taps two buffers, 1 + ceil((taps - 1) / 32) ring
+    groups and the stacks, the horizontal one with lead - half zeros first.
+    Two blocks of the default layout fit an SM."""
+    assert ff.fused_smem_bytes(21) == 4 * (3 * 32 * 56 + 84 * 7 * 32)
+    assert 2 * (ff.fused_smem_bytes(21) + 1024) <= 228 * 1024
+    half, lead = 14, 16  # 29 taps
+    assert ff.fused_smem_bytes(29) == 4 * (2 * 3 * 32 * (32 + 2 * lead) + 2 * 32 * 7 * 32 + 8 * (2 * 29 + lead - half))
+    # at MAX_FUSED_TAPS a staged row is 128 columns, the 32 16-byte chunks
+    # that the kernel's staging gives a lane each (kMaxStageWidth)
+    assert ff.fused_smem_bytes(97) == 4 * (2 * 3 * 32 * 128 + 4 * 32 * 7 * 32 + 8 * 2 * 97)
